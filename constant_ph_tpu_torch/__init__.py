@@ -4,12 +4,14 @@ Constant-pH λ-dynamics MD on the tiled cell-stencil hot path, run on an
 NVIDIA GPU. Module names mirror the JAX package (`constant_ph_tpu`), which
 stays the reference the port is tested against (tests/test_torch_*.py).
 
-This slice carries the damped-shifted-force (DSF) main path: build
-(`systems.water.solvated_acid`), lay out (`tiled.layout.split_system`,
-`to_tiled`), and run (`tiled.engine.TiledEngine.make_minimize`,
-`make_run`). The water-water pair block runs as a hand-written CUDA
-kernel (`csrc/ww_pair.cu`) on CUDA tensors and as its plain PyTorch
-version on CPU tensors.
+The port carries the main path: build (`systems.water.solvated_acid`),
+lay out (`tiled.layout.split_system`, `to_tiled`), and run
+(`tiled.engine.TiledEngine.make_minimize`, `make_run`) with
+damped-shifted-force Coulomb or smooth PME (`ops.pme`, under impulse
+MTS), plus the per-atom tally path (`compute_Hs`). The water-water pair
+blocks run as hand-written CUDA kernels on CUDA tensors — the hot path
+(`csrc/ww_pair.cu`) and the full-tally block (`csrc/ww_tally.cu`) — and
+as their plain PyTorch versions on CPU tensors.
 
 Entry points take ``device`` (default ``"cuda"``); asking for CUDA on a
 machine without it raises instead of falling back to the CPU.

@@ -7,7 +7,8 @@ tests flatten the JAX package's objects to such dicts, so both packages
 compute on identical inputs; this module never sees a JAX type.
 
 Field names are those of the port's dataclasses; unknown keys (a JAX
-state's PRNG key, its k-space and metadynamics carries) are ignored.
+state's PRNG key, its metadynamics tables) are ignored. A tiled state's
+host step counter is taken from its ``step``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from constant_ph_tpu_torch import resolve_device
 from constant_ph_tpu_torch.forcefield import BondedParams
 from constant_ph_tpu_torch.lambda_dyn import LambdaSpec
 from constant_ph_tpu_torch.ops.constraints import RigidTriatomic
+from constant_ph_tpu_torch.ops.pme import PMEParams
 from constant_ph_tpu_torch.state import SystemState
 from constant_ph_tpu_torch.tiled.layout import (
     SoluteTables,
@@ -34,9 +36,13 @@ _INT64 = {"atom_idx", "bond_idx", "angle_idx", "dihedral_idx", "improper_idx"}
 _INT32 = {"wid", "step"}
 
 
-def _tensors(cls, d: dict, dev):
-    out = {}
+def _tensors(cls, d: dict, dev, **given):
+    """cls from the arrays of ``d``; fields in ``given`` are passed as
+    they are."""
+    out = dict(given)
     for f in dataclasses.fields(cls):
+        if f.name in given:
+            continue
         a = np.array(d[f.name])          # a writable copy
         if f.name in _INT64:
             out[f.name] = torch.as_tensor(a.astype(np.int64), device=dev)
@@ -60,7 +66,26 @@ def system_state(d: dict, device="cuda") -> SystemState:
 
 
 def tiled_state(d: dict, device="cuda") -> TiledState:
-    return _tensors(TiledState, d, resolve_device(device))
+    return _tensors(TiledState, d, resolve_device(device),
+                    step_host=int(d["step"]))
+
+
+def pme_params(d: dict, device="cuda") -> PMEParams:
+    """PMEParams from its static fields (alpha, grid, m, p, h, mesh,
+    volume, spacing) and its arrays (Ahat, box, binv, nx, ny, nzr)."""
+    dev = resolve_device(device)
+
+    def ints(k):
+        return tuple(int(v) for v in np.asarray(d[k]).reshape(-1))
+
+    return PMEParams(
+        alpha=float(d["alpha"]), grid=ints("grid"), m=ints("m"),
+        p=int(d["p"]), h=ints("h"), mesh=ints("mesh"),
+        volume=float(d["volume"]),
+        spacing=tuple(float(v) for v in np.asarray(d["spacing"])),
+        **{k: torch.as_tensor(np.array(d[k]), dtype=torch.float32,
+                              device=dev)
+           for k in ("Ahat", "box", "binv", "nx", "ny", "nzr")})
 
 
 def tiled_system(d: dict, device="cuda") -> TiledSystem:

@@ -1,7 +1,7 @@
 """Run configuration and per-step observables (port of the EngineConfig
 and Observables of constant_ph_tpu/engine.py). The reference all-pairs
-Engine is not part of this slice; the tiled engine is
-tiled/engine.TiledEngine."""
+Engine is not ported yet (the reference-engine slice); the tiled engine
+is tiled/engine.TiledEngine."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,8 +11,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static run configuration. The k-space options of the JAX config
-    (kspace_every, kspace_live_box) come with the PME slice."""
+    """Static run configuration."""
 
     dt: float = 1.0                  # fs
     T: float = 300.0                 # K
@@ -27,12 +26,21 @@ class EngineConfig:
     # the analytic stiff force per half drift; 1 = single-rate drift
     lambda_inner: int = 8
     rebuild_every: int = 20
+    # k-space impulse MTS (Verlet-I / r-RESPA outer level): the reciprocal
+    # term is evaluated every kspace_every steps and applied ×kspace_every
+    # in the two half-kicks around the evaluation; λ forces in between use
+    # the last reciprocal φ (tiled/engine.py)
+    kspace_every: int = 1
     # per-atom force-norm cap in kcal/mol/Å (0 = off)
     force_cap: float = 0.0
     # reflective λ backstop walls (folding reflection, tiled/engine.py)
     lam_min: float = -0.5
     lam_max: float = 1.5
     lambda_frozen: bool = False
+    # derive the PME influence function, spacing and volume from the live
+    # state box at each k-space evaluation (ops/pme.pme_influence) instead
+    # of the box baked into the PME params (NPT)
+    kspace_live_box: bool = False
     # seed of the engine's torch.Generator (thermostat noise); the JAX
     # package keeps a PRNG key in its state instead
     seed: int = 0

@@ -1,1 +1,1 @@
-"""Pair kernels, bonded terms and constraints (plain PyTorch)."""
+"""Pair kernels, bonded terms, constraints and PME (plain PyTorch)."""

@@ -1,17 +1,22 @@
 """TiledEngine: the hot-path engine on cell tiles (port of
-constant_ph_tpu/tiled/engine.py, DSF slice).
+constant_ph_tpu/tiled/engine.py).
 
-Per step: tile pair blocks (the water-water block is the CUDA kernel on
-the GPU), λ-dynamics with exact dU/dλ, BAOAB Langevin / velocity-Verlet /
-NHC integration with the λ-RESPA inner drift, and tile SHAKE/RATTLE.
-``make_minimize`` and ``make_run`` return functions that loop over
-``rebuild_every``-step blocks in Python (the JAX package's lax.scan),
-rebinning at each block start; they never read a device value on the
-host, so the caller decides when to synchronise.
+Per step: tile pair blocks, smooth PME under ``kspace_every`` impulse MTS
+with the stale-φ carry, λ-dynamics with exact dU/dλ, BAOAB Langevin /
+velocity-Verlet / NHC integration with the λ-RESPA inner drift, and tile
+SHAKE/RATTLE. The water-water block is a CUDA kernel on the GPU: K1
+(csrc/ww_pair.cu) on the hot path, K2 (csrc/ww_tally.cu, per-atom
+tallies) with ``use_pallas_ww=True``; ``need_tally`` without K2, and
+grids below 3 cells per dim, take the plain tally path
+(tiled.forces.water_water). ``make_minimize`` and ``make_run`` return
+functions that loop over ``rebuild_every``-step blocks in Python (the JAX
+package's lax.scan), rebinning at each block start; they never read a
+device value on the host (the MTS boundary test reads the state's host
+step counter), so the caller decides when to synchronise.
 
-Not in this slice (each raises NotImplementedError naming the slice that
-brings it): reciprocal space (``kspace_ep``), metadynamics, per-atom
-tallies (``need_tally`` / compute_Hs) and grids below 3 cells per dim.
+Not ported yet (each raises NotImplementedError naming the slice that
+brings it): factorized-Ewald k-space (ops/ewald.py, the reference-engine
+slice) and metadynamics.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from constant_ph_tpu_torch.engine import EngineConfig, Observables
 from constant_ph_tpu_torch.integrators import nhc_halfstep
 from constant_ph_tpu_torch.lambda_dyn import BiasParams
 from constant_ph_tpu_torch.ops.bonded import bonded_forces
+from constant_ph_tpu_torch.ops.pme import PMEParams, pme_recip_tiled
 from constant_ph_tpu_torch.tiled import forces as tforces
 from constant_ph_tpu_torch.tiled.layout import (
     TiledState,
@@ -45,8 +51,15 @@ class TiledForces:
     e_bonded: torch.Tensor
     e_kspace: torch.Tensor
     e_site: torch.Tensor
+    eatom_w: torch.Tensor  # (G, 3W) per-atom energy tallies (need_tally)
+    eatom_s: torch.Tensor  # (Ns,)
     phi_s: torch.Tensor   # (Ns,) φ on solute atoms
     dUdlam: torch.Tensor  # (S,)
+    # reciprocal-space φ on solute atoms from the most recent k-space
+    # evaluation, carried from step to step so λ forces between MTS
+    # boundaries use the stale value (exact at kspace_every == 1); zeros
+    # without k-space
+    phi_recip_s: torch.Tensor
 
     @property
     def e_pot(self):
@@ -57,17 +70,22 @@ class TiledForces:
 class TiledEngine:
     def __init__(self, tsys: TiledSystem, config: EngineConfig = EngineConfig(),
                  bias: BiasParams = BiasParams(), kspace_ep=None,
-                 metad=None):
-        if kspace_ep is not None:
+                 use_pallas_ww=False, metad=None):
+        if config.kspace_every < 1:
+            raise ValueError("kspace_every must be >= 1")
+        if (config.kspace_live_box and kspace_ep is not None
+                and not isinstance(kspace_ep, PMEParams)):
+            raise ValueError(
+                "kspace_live_box requires PME: factorized-Ewald params bake "
+                "box-shaped structure-factor tables at build time; use "
+                "ops.pme.make_pme_params for NPT k-space")
+        if kspace_ep is not None and not isinstance(kspace_ep, PMEParams):
             raise NotImplementedError(
-                "reciprocal space (kspace_ep) comes with the PME slice")
+                "factorized-Ewald k-space (ops/ewald.py) comes with the "
+                "reference-engine slice; pass PMEParams for PME")
         if metad is not None:
             raise NotImplementedError(
                 "metadynamics comes with the campaign-path slice")
-        if min(tsys.params.grid) < 3:
-            raise NotImplementedError(
-                "grids below 3 cells per dim need the tally path "
-                "(water_water), which comes with the K2 slice")
         # SHAKE and the force sums need full float32 (no TF32 anywhere)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -75,6 +93,12 @@ class TiledEngine:
         self.ts = tsys
         self.cfg = config
         self.bias = bias
+        self.kspace_ep = kspace_ep
+        # use_pallas_ww: False or "fast" = the hot-path kernel K1; True =
+        # the full-tally kernel K2 on every force evaluation. Below 3 cells
+        # per dim neither applies and the plain tally path runs
+        self.use_pallas_ww = (use_pallas_ww
+                              if min(tsys.params.grid) >= 3 else False)
         self.device = tsys.device
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
@@ -85,6 +109,9 @@ class TiledEngine:
         self.wmass = torch.as_tensor(
             np.tile(tsys.water.mass_pattern, p.W), dtype=torch.float32,
             device=self.device)                                   # (3W,)
+        self.wq_pat = torch.as_tensor(
+            np.tile(tsys.water.q_pattern, p.W), dtype=torch.float32,
+            device=self.device)                                   # (3W,)
         self.n_waters = tsys.water_atom_ids.shape[0]
         self.ns_real = len(tsys.solute_ids)
         self.n_sites = 0 if tsys.spec is None else tsys.spec.n_sites
@@ -92,6 +119,10 @@ class TiledEngine:
                       if tsys.solute_constraints is not None else 0)
         self.ndof = (3 * (3 * self.n_waters + self.ns_real) - 3
                      - 3 * self.n_waters - n_buf_cons)
+        self.e_corr = 0.0
+        if kspace_ep is not None:
+            self.e_corr = tforces.water_intra_ewald_correction(
+                tsys.water, self.n_waters, kspace_ep.alpha)
 
     # -- forces ---------------------------------------------------------------
 
@@ -101,41 +132,102 @@ class TiledEngine:
             return ts.solute.q0
         return lambda_dyn.charges(ts.solute.q0, ts.spec, lam)
 
-    def compute_forces(self, st: TiledState,
-                       need_tally: bool = False) -> TiledForces:
-        """Forces + energies on the hot path: water-water (kernel), water-
-        solute and solute-solute blocks, bonded terms, and the λ force
-        from φ on solute atoms."""
-        if need_tally:
-            raise NotImplementedError(
-                "per-atom tallies (compute_Hs) come with the K2 slice")
+    def compute_forces(self, st: TiledState, need_tally: bool = False,
+                       kspace_impulse: bool = False,
+                       phi_recip_prev=None) -> TiledForces:
+        """Forces + energies (+ per-atom water tallies when ``need_tally``).
+
+        The hot path skips the water eatom/φ tallies: only φ on solute
+        atoms feeds dU/dλ, and the tallies serve the compute_Hs
+        diagnostic.
+
+        ``kspace_impulse`` (set by the MD step and run loop, not by
+        minimisation or diagnostics): with cfg.kspace_every = k > 1 the
+        reciprocal term runs only when st.step % k == 0 (decided on the
+        host copy of the counter, so nothing waits for the device) and its
+        forces enter ×k, so the two half-kicks around a boundary deliver
+        the Verlet-I / r-RESPA impulse. Between boundaries λ forces use
+        ``phi_recip_prev``, the previous reciprocal φ; off-boundary
+        evaluations report e_kspace = 0. φ and energies are not
+        amplified."""
         ts = self.ts
         p = ts.params
         gx, gy, gz = p.grid
         W = p.W
         box = st.box
-        style, alpha, rc = ts.coul_style, ts.alpha, ts.cutoff
+        kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
 
         wxg = st.wx.reshape(3, gx, gy, gz, 3 * W)
-        e_lj_ww, e_c_ww, f_ww = tforces.water_water_fast(
-            wxg, ts.water, p, box, style=style, alpha=alpha, rc=rc)
+        wvg = st.wvalid.reshape(gx, gy, gz, W)
+
+        fast_ok = min(p.grid) >= 3 and not need_tally
+        if fast_ok and self.use_pallas_ww in (False, "fast"):
+            e_lj_ww, e_c_ww, f_ww = tforces.water_water_fast(
+                wxg, ts.water, p, box, **kw)
+            eatom_ww = torch.zeros_like(wxg[0])
+        elif self.use_pallas_ww is True:
+            e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water_tally(
+                wxg, wvg, ts.water, p, box, **kw)
+        else:
+            e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water(
+                wxg, wvg, ts.water, p, box, **kw)
+
         qs = self.charges_solute(st.lam)
-        e_lj_ws, e_c_ws, f_w_ws, f_s_ws, phi_s_ws = tforces.water_solute_fast(
-            wxg, st.sx, qs, ts.solute, ts.water, p, box,
-            style=style, alpha=alpha, rc=rc)
-        e_lj_ss, e_c_ss, f_ss, _, phi_ss = tforces.solute_solute(
-            st.sx, qs, ts.solute, box, style=style, alpha=alpha, rc=rc)
+        if fast_ok:
+            e_lj_ws, e_c_ws, f_w_ws, f_s_ws, phi_s_ws = \
+                tforces.water_solute_fast(wxg, st.sx, qs, ts.solute,
+                                          ts.water, p, box, **kw)
+            eatom_w_ws = torch.zeros_like(wxg[0])
+            eatom_s_ws = torch.zeros_like(qs)
+        else:
+            (e_lj_ws, e_c_ws, f_w_ws, f_s_ws, eatom_w_ws, eatom_s_ws, _,
+             phi_s_ws) = tforces.water_solute(
+                wxg, wvg, st.sx, qs, ts.solute, ts.water, p, box, **kw)
+        e_lj_ss, e_c_ss, f_ss, eatom_ss, phi_ss = tforces.solute_solute(
+            st.sx, qs, ts.solute, box, **kw)
 
         fw = (f_ww + f_w_ws).reshape(3, self.G, 3 * W)
         fs = f_s_ws + f_ss
+        eatom_w = (eatom_ww + eatom_w_ws).reshape(self.G, 3 * W)
+        eatom_s = eatom_s_ws + eatom_ss
         phi_s = phi_s_ws + phi_ss
 
         zero = torch.zeros((), dtype=st.sx.dtype, device=st.sx.device)
         e_bonded = zero
         if ts.bonded is not None and int(ts.bonded.bond_idx.shape[0]):
-            e_bonded, fb, _ = bonded_forces(st.sx, box, ts.bonded)
+            e_bonded, fb, eatom_b = bonded_forces(st.sx, box, ts.bonded)
             fs = fs + fb
+            eatom_s = eatom_s + eatom_b
 
+        e_kspace = zero
+        phi_recip = torch.zeros_like(qs)
+        k_ev = self.cfg.kspace_every if kspace_impulse else 1
+        if k_ev > 1 and need_tally:
+            raise ValueError("per-atom tallies require a full kspace "
+                             "evaluation (call without kspace_impulse)")
+        if self.kspace_ep is not None and st.step_host % k_ev != 0:
+            # between MTS boundaries: no reciprocal force, the stale φ
+            if phi_recip_prev is not None:
+                phi_recip = phi_recip_prev
+        elif self.kspace_ep is not None:
+            # an MTS boundary (or no MTS): smooth PME on the cell tiles
+            vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
+            wqg = (self.wq_pat[None, :] * vm_atoms).reshape(gx, gy, gz,
+                                                             3 * W)
+            qs_m = qs * ts.solute.smask
+            ek, fwk, fsk, phi_recip, phi_wk = pme_recip_tiled(
+                wxg, wqg, st.sx, qs_m, self.kspace_ep,
+                need_water_phi=need_tally,
+                box=st.box if self.cfg.kspace_live_box else None)
+            fw = fw + float(k_ev) * fwk.reshape(3, self.G, 3 * W)
+            fs = fs + float(k_ev) * fsk
+            if need_tally:
+                eatom_w = eatom_w + (0.5 * wqg * phi_wk).reshape(self.G,
+                                                                 3 * W)
+                eatom_s = eatom_s + 0.5 * qs_m * phi_recip
+            e_kspace = ek + self.e_corr
+
+        phi_s = phi_s + phi_recip
         if ts.spec is not None:
             dUdlam = lambda_dyn.dq_dlambda_dot(ts.spec, phi_s)
             f_lam, u_site = lambda_dyn.lambda_force(
@@ -149,8 +241,9 @@ class TiledEngine:
             fw=fw, fs=fs, f_lam=f_lam,
             e_lj=e_lj_ww + e_lj_ws + e_lj_ss,
             e_coul=e_c_ww + e_c_ws + e_c_ss,
-            e_bonded=e_bonded, e_kspace=zero, e_site=e_site,
-            phi_s=phi_s, dUdlam=dUdlam,
+            e_bonded=e_bonded, e_kspace=e_kspace, e_site=e_site,
+            eatom_w=eatom_w, eatom_s=eatom_s, phi_s=phi_s, dUdlam=dUdlam,
+            phi_recip_s=phi_recip,
         )
 
     # -- diagnostics ------------------------------------------------------------
@@ -186,15 +279,33 @@ class TiledEngine:
             temp_lam = lambda_dyn.lambda_temperature(st.v_lam, self.ts.spec)
         else:
             ke_lam = temp_lam = torch.zeros_like(ke)
+        # under impulse MTS h_conserved is exact only on k-space boundary
+        # rows (off-boundary rows report e_kspace = 0); h_valid marks them
+        k_ev = self.cfg.kspace_every
+        if self.kspace_ep is None or k_ev == 1:
+            h_valid = torch.ones((), dtype=torch.bool, device=ke.device)
+        else:
+            h_valid = (st.step % k_ev) == 0
         return Observables(
             e_pot=frc.e_pot, e_lj=frc.e_lj, e_coul=frc.e_coul,
             e_bonded=frc.e_bonded, e_kspace=frc.e_kspace, e_site=frc.e_site,
             ke=ke, temp=temp, ke_lam=ke_lam, temp_lam=temp_lam,
             h_conserved=frc.e_pot + ke + ke_lam - st.ext_work,
-            h_valid=torch.ones((), dtype=torch.bool, device=ke.device),
-            ext_work=st.ext_work, lam=st.lam, v_lam=st.v_lam,
+            h_valid=h_valid, ext_work=st.ext_work, lam=st.lam, v_lam=st.v_lam,
             dUdlam=frc.dUdlam,
         )
+
+    def compute_Hs(self, st: TiledState, frc: TiledForces | None = None):
+        """Per-atom energy diagnostic of the reference fix: HA = Σ eatom,
+        HB = HA without the titratable-H group."""
+        if frc is None:
+            frc = self.compute_forces(st, need_tally=True)
+        vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
+        HA = (torch.sum(frc.eatom_w * vm_atoms)
+              + torch.sum(frc.eatom_s * self.ts.solute.smask))
+        HB = HA - torch.sum(torch.where(self.ts.groupH_mask, frc.eatom_s,
+                                        0.0))
+        return HA, HB
 
     # -- integration ------------------------------------------------------------
 
@@ -357,9 +468,15 @@ class TiledEngine:
             sx, sv = ts.solute_constraints.positions(st.sx, sx, sv, st.box,
                                                      dt)
 
+        # the step counter advances BEFORE the force evaluation, so its MTS
+        # boundary test agrees with the block-start recompute in make_run
+        # (positions x_c, counter c after rebin); otherwise every rebuild
+        # adds a spurious k-space half-impulse
         st_new = dataclasses.replace(st, wx=wx, sx=sx, lam=lam,
-                                     step=st.step + 1)
-        frc_new = self.compute_forces(st_new)
+                                     step=st.step + 1,
+                                     step_host=st.step_host + 1)
+        frc_new = self.compute_forces(st_new, kspace_impulse=True,
+                                      phi_recip_prev=frc.phi_recip_s)
         frc_capped = self._cap_forces(frc_new)
 
         # B
@@ -496,7 +613,8 @@ class TiledEngine:
             for _ in range(n_blocks):
                 st, ov = rebin(st, self.ts.params)
                 ov_cap = ov_cap | ov
-                frc = self.compute_forces(st)
+                frc = self.compute_forces(st, kspace_impulse=True,
+                                          phi_recip_prev=st.phi_recip_s)
                 wxO0 = st.wx[:, :, 0::3]
                 for _ in range(block):
                     st, frc = self.step(st, frc)
@@ -505,6 +623,9 @@ class TiledEngine:
                 # moves rows at block start); parked rows don't move
                 dw2 = torch.sum((st.wx[:, :, 0::3] - wxO0) ** 2, dim=0)
                 ov_drift = ov_drift | (torch.max(dw2) > drift_budget ** 2)
+                # keep the k-space MTS carry in the state, so the next run
+                # call keeps the stale-φ λ coupling
+                st = dataclasses.replace(st, phi_recip_s=frc.phi_recip_s)
             obs = Observables.stack(rows)
             if detailed_flags:
                 return st, (ov_cap, ov_drift), obs

@@ -1,15 +1,22 @@
-"""Tiled pair blocks on the hot path (port of the fast path of
-constant_ph_tpu/tiled/forces.py): water-water, water-solute and
-solute-solute forces and total energies, plus φ on solute atoms for dU/dλ.
+"""Tiled pair blocks (port of constant_ph_tpu/tiled/forces.py and of the
+functions of constant_ph_tpu/tiled/pallas_ww.py): water-water,
+water-solute and solute-solute forces and energies, φ on solute atoms for
+dU/dλ, and, on the tally path, per-atom energies and φ.
 
-``water_water_fast`` is the water-water contract (the JAX package's
-``water_water_fast`` and its Pallas twin ``pallas_ww._chunk_pair_kernel``).
-On a CUDA tensor it launches the hand-written kernel (tiled/cuda_ww.py,
-csrc/ww_pair.cu); on a CPU tensor it runs ``water_water_fast_plain``,
-the plain PyTorch version of the same function.
+Two water-water contracts have CUDA kernels (tiled/cuda_ww.py); each
+dispatcher launches the kernel for a CUDA tensor and runs the plain
+PyTorch version of the same function for a CPU tensor:
+- ``water_water_fast`` (hot path; the JAX ``water_water_fast`` and its
+  Pallas twin ``_chunk_pair_kernel``): csrc/ww_pair.cu /
+  ``water_water_fast_plain``;
+- ``water_water_tally`` (full tallies; the JAX ``water_water_pallas``,
+  kernel ``make_ww_kernel``): csrc/ww_tally.cu /
+  ``water_water_tally_plain``.
+``water_water`` and ``water_solute`` are the tally-path blocks (any grid).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -93,15 +100,30 @@ def _screened_coulomb(r2, style, rc, consts):
     return u_r, w_r, inv_r2
 
 
+@dataclasses.dataclass
+class BlockSums:
+    """Sums of one dense pair block. The j-side fields are None for a
+    single-sided block."""
+
+    e_lj: torch.Tensor
+    e_coul: torch.Tensor
+    fi: tuple            # 3 tensors (..., A)
+    fj: tuple | None     # 3 tensors (..., B)
+    eatom_i: torch.Tensor
+    eatom_j: torch.Tensor | None
+    phi_i: torch.Tensor
+    phi_j: torch.Tensor | None
+
+
 def _pair_block(xi, xj, box, qi, qj, c6p, c12p, eshp, scoulp, weight,
-                *, style, alpha, rc):
-    """Dense single-sided pair block between atom sets A and B, counted
-    from the i side (the full matrix is summed, energies halved).
+                *, style, alpha, rc, double_sided=False) -> BlockSums:
+    """Dense pair block between atom sets A and B.
 
     xi/xj: 3 per-dim coordinate tensors (..., A) / (..., B). Coefficients
     broadcast to (..., A, B); weight ∈ {0,1} encodes validity +
-    exclusions (masked pairs are pushed outside the cutoff).
-    Returns (e_lj, e_coul, fi (3 tensors (..., A)), eatom_i, phi_i)."""
+    exclusions (masked pairs are pushed outside the cutoff). Single-sided
+    (the default) counts the full matrix from the i side, so energies are
+    halved; double-sided accumulates both sides of each pair once."""
     far = rc * rc + 1.0
     dx = []
     r2 = None
@@ -127,10 +149,102 @@ def _pair_block(xi, xj, box, qi, qj, c6p, c12p, eshp, scoulp, weight,
     e_c_p = kqq * u_r
     fpair = f_lj + kqq * w_r
     fi = tuple(torch.sum(fpair * dx[d], dim=-1) for d in range(3))
-    eatom_i = 0.5 * torch.sum(e_lj_p + e_c_p, dim=-1)
+    e_p = e_lj_p + e_c_p
+    eatom_i = 0.5 * torch.sum(e_p, dim=-1)
     phi_i = units.QQR2E * torch.sum(qj[..., None, :] * u_r, dim=-1)
-    return (0.5 * torch.sum(e_lj_p), 0.5 * torch.sum(e_c_p), fi, eatom_i,
-            phi_i)
+    if double_sided:
+        fj = tuple(-torch.sum(fpair * dx[d], dim=-2) for d in range(3))
+        eatom_j = 0.5 * torch.sum(e_p, dim=-2)
+        phi_j = units.QQR2E * torch.sum(qi[..., :, None] * u_r, dim=-2)
+        scale = 1.0
+    else:
+        fj = eatom_j = phi_j = None
+        scale = 0.5      # full matrix counted once from the i side
+    return BlockSums(e_lj=scale * torch.sum(e_lj_p),
+                     e_coul=scale * torch.sum(e_c_p), fi=fi, fj=fj,
+                     eatom_i=eatom_i, eatom_j=eatom_j, phi_i=phi_i,
+                     phi_j=phi_j)
+
+
+def _water_patterns(wm: WaterModel, W: int, dtype, device):
+    """(q_pat (3W,), lj_pat (3W,) = 1 on O slots, not_same_mol (3W, 3W)),
+    made on the device: a host array would be a pageable copy, which
+    synchronises the stream."""
+    a = torch.arange(3 * W, device=device)
+    is_o = a % 3 == 0
+    q_pat = torch.where(is_o, wm.q_pattern[0], wm.q_pattern[1]).to(dtype)
+    mol = a // 3
+    return (q_pat, is_o.to(dtype),
+            (mol[:, None] != mol[None, :]).to(dtype))
+
+
+def water_water(wxg, wvalid, wm: WaterModel, p: TileParams, box,
+                *, style, alpha, rc):
+    """All water-water interactions with per-atom tallies (the tally
+    path; any grid). wxg: (3, gx, gy, gz, 3W); wvalid: (gx, gy, gz, W).
+    Returns (e_lj, e_coul, f (3, gx, gy, gz, 3W), eatom (gx, gy, gz, 3W),
+    phi (gx, gy, gz, 3W)). Self cell as a full single-sided matrix with
+    same-molecule pairs excluded; each half-stencil neighbour as a
+    double-sided block whose j sums are rolled back onto their cells.
+    Per-pair min image and exact erfc (ops.kernels.coul_kernel)."""
+    q_pat, lj_pat, not_same_mol = _water_patterns(wm, p.W, wxg.dtype,
+                                                  wxg.device)
+    vmask = torch.repeat_interleave(wvalid, 3, dim=-1)     # (gx,gy,gz,3W)
+
+    xi = tuple(wxg[d] for d in range(3))
+    lj2 = lj_pat[:, None] * lj_pat[None, :]
+    c6_ij = wm.c6_OO * lj2
+    c12_ij = wm.c12_OO * lj2
+    esh_ij = wm.eshift_OO * lj2
+    kw = dict(style=style, alpha=alpha, rc=rc)
+
+    # self cell: full matrix, same-molecule pairs excluded, i-side counting
+    w_self = (vmask[..., :, None] * vmask[..., None, :]) * not_same_mol
+    bs = _pair_block(xi, xi, box, q_pat, q_pat, c6_ij, c12_ij, esh_ij, 1.0,
+                     w_self, **kw)
+    f = list(bs.fi)
+    eatom, phi = bs.eatom_i, bs.phi_i
+    e_lj, e_coul = bs.e_lj, bs.e_coul
+
+    # half stencil: each unordered cell pair once, both sides accumulated
+    dims = (0, 1, 2)
+    for off in p.half_stencil:
+        sh = tuple(-o for o in off)
+        xj = tuple(torch.roll(wxg[d], sh, dims=dims) for d in range(3))
+        vmj = torch.roll(vmask, sh, dims=dims)
+        w = vmask[..., :, None] * vmj[..., None, :]
+        bs = _pair_block(xi, xj, box, q_pat, q_pat, c6_ij, c12_ij, esh_ij,
+                         1.0, w, double_sided=True, **kw)
+        for d in range(3):
+            f[d] = f[d] + bs.fi[d] + torch.roll(bs.fj[d], off, dims=dims)
+        eatom = eatom + bs.eatom_i + torch.roll(bs.eatom_j, off, dims=dims)
+        phi = phi + bs.phi_i + torch.roll(bs.phi_j, off, dims=dims)
+        e_lj = e_lj + bs.e_lj
+        e_coul = e_coul + bs.e_coul
+    return e_lj, e_coul, torch.stack(f), eatom, phi
+
+
+def water_solute(wxg, wvalid, sx, qs, st: SoluteTables, wm: WaterModel,
+                 p: TileParams, box, *, style, alpha, rc):
+    """Water tiles × dense solute with per-atom tallies. Returns (e_lj,
+    e_coul, f_w (3, gx, gy, gz, 3W), f_s (Ns, 3), eatom_w, eatom_s, phi_w,
+    phi_s)."""
+    q_pat, lj_pat, _ = _water_patterns(wm, p.W, wxg.dtype, wxg.device)
+    vmask = torch.repeat_interleave(wvalid, 3, dim=-1)
+
+    xi = tuple(wxg[d] for d in range(3))
+    xj = tuple(sx[:, d][None, None, None, :] for d in range(3))
+    c6p = lj_pat[:, None] * st.c6_cross[None, :]
+    c12p = lj_pat[:, None] * st.c12_cross[None, :]
+    eshp = lj_pat[:, None] * st.eshift_cross[None, :]
+    w = vmask[..., :, None] * st.smask[None, None, None, None, :]
+    bs = _pair_block(xi, xj, box, q_pat, qs, c6p, c12p, eshp, 1.0, w,
+                     style=style, alpha=alpha, rc=rc, double_sided=True)
+    f_s = torch.stack([torch.sum(bs.fj[d], dim=(0, 1, 2)) for d in range(3)],
+                      dim=-1)
+    return (bs.e_lj, bs.e_coul, torch.stack(bs.fi), f_s, bs.eatom_i,
+            torch.sum(bs.eatom_j, dim=(0, 1, 2)), bs.phi_i,
+            torch.sum(bs.phi_j, dim=(0, 1, 2)))
 
 
 def solute_solute(sx, qs, st: SoluteTables, box, *, style, alpha, rc):
@@ -140,10 +254,10 @@ def solute_solute(sx, qs, st: SoluteTables, box, *, style, alpha, rc):
     xi = tuple(sx[:, d] for d in range(3))
     eye = torch.eye(Ns, dtype=sx.dtype, device=sx.device)
     w = st.smask[:, None] * st.smask[None, :] * (1.0 - eye)
-    e_lj, e_c, fi, eatom, phi = _pair_block(
-        xi, xi, box, qs, qs, st.c6, st.c12, st.eshift, st.scoul, w,
-        style=style, alpha=alpha, rc=rc)
-    return e_lj, e_c, torch.stack(fi, dim=-1), eatom, phi
+    bs = _pair_block(xi, xi, box, qs, qs, st.c6, st.c12, st.eshift,
+                     st.scoul, w, style=style, alpha=alpha, rc=rc)
+    return (bs.e_lj, bs.e_coul, torch.stack(bs.fi, dim=-1), bs.eatom_i,
+            bs.phi_i)
 
 
 def water_solute_fast(wxg, sx, qs, st: SoluteTables, wm: WaterModel,
@@ -321,3 +435,139 @@ def water_water_fast(wxg, wm: WaterModel, p: TileParams, box, *,
         raise ValueError(f"water_water_fast: no kernel for {wxg.device}")
     return water_water_fast_plain(wxg, wm, p, box, style=style,
                                   alpha=alpha, rc=rc)
+
+
+# -- the full-tally water-water kernel (K2) ---------------------------------
+
+def _erfc_pos(x, expmx2):
+    """erfc(x) for x ≥ 0 by Abramowitz–Stegun 7.1.26 (|ε| < 1.5e-7), with
+    expmx2 = exp(−x²) shared with the Ewald gaussian term: the formula of
+    the TPU kernel, which the CUDA kernel repeats."""
+    t = 1.0 / (1.0 + 0.3275911 * x)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                + t * (-1.453152027 + t * 1.061405429))))
+    return poly * expmx2
+
+
+def pack_water_tiles(wxg, wvalid, wm: WaterModel, p: TileParams):
+    """(3, gx, gy, gz, A) coords + (gx, gy, gz, W) validity → packed
+    tiles (gx, gy, gz, 8, A): rows x, y, z, charge (pattern × valid), LJ
+    mask (valid O slots), validity, and two zero rows."""
+    q_pat, lj_pat, _ = _water_patterns(wm, p.W, wxg.dtype, wxg.device)
+    vm = torch.repeat_interleave(wvalid, 3, dim=-1)          # (gx,gy,gz,A)
+    zero = torch.zeros_like(vm)
+    return torch.stack([wxg[0], wxg[1], wxg[2], q_pat * vm, lj_pat * vm,
+                        vm, zero, zero], dim=3).contiguous()
+
+
+_STENCIL27 = tuple((ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
+                  for oz in (-1, 0, 1))                    # self at 13
+
+
+def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
+                            style, alpha, rc):
+    """Plain PyTorch version of the full-tally water-water kernel (the
+    TPU kernel pallas_ww.make_ww_kernel; CUDA csrc/ww_tally.cu).
+
+    wt: packed tiles (gx, gy, gz, 8, A) (pack_water_tiles); box (3,).
+    Returns out (gx, gy, gz, 8, A): per slot force x, y, z, eatom_lj,
+    eatom_coul and φ, then two zero rows. Full 27-offset stencil with
+    i-side-only sums; per-pair min image (round half to even);
+    validity weights, and on the self offset the same-molecule mask;
+    masked pairs are pushed to r² = rc² + 1 before 1/r²; LJ on O rows by
+    mask; Coulomb with the Abramowitz–Stegun erfc in DSF or 'cut' style.
+    Needs grid ≥ 3 per dim (the 27 offsets must be distinct cells)."""
+    if min(p.grid) < 3:
+        raise ValueError("the full-tally water-water kernel needs grid >= 3 "
+                         "per dim; use tiled.forces.water_water")
+    A = 3 * p.W
+    rc2 = rc * rc
+    dtype, dev = wt.dtype, wt.device
+    e_sh, f_sh, _, _ = coulomb_constants(style, alpha, rc)
+    _, _, not_same_mol = _water_patterns(wm, p.W, dtype, dev)
+    inv_l = 1.0 / box
+    xi = [wt[..., d, :] for d in range(3)]
+    qi, lji, vi = wt[..., 3, :], wt[..., 4, :], wt[..., 5, :]
+    out = torch.zeros_like(wt)
+    for k, off in enumerate(_STENCIL27):
+        tile = torch.roll(wt, tuple(-o for o in off), dims=(0, 1, 2))
+        dx = []
+        r2 = None
+        for d in range(3):
+            dd = xi[d][..., :, None] - tile[..., d, :][..., None, :]
+            dd = dd - box[d] * torch.round(dd * inv_l[d])
+            dx.append(dd)
+            r2 = dd * dd if r2 is None else r2 + dd * dd
+        w = vi[..., :, None] * tile[..., 5, :][..., None, :]
+        if k == 13:
+            w = w * not_same_mol
+        r2 = torch.where(w > 0, torch.clamp(r2, min=R2_MIN),
+                         torch.full_like(r2, rc2 + 1.0))
+        in_rc = (r2 < rc2).to(dtype)
+        inv_r2 = 1.0 / r2
+        r = torch.sqrt(r2)
+
+        ljp = lji[..., :, None] * tile[..., 4, :][..., None, :]
+        inv_r6 = inv_r2 * inv_r2 * inv_r2
+        e_lj_p = (((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
+                  * ljp * in_rc)
+        f_lj = ((12.0 * wm.c12_OO * inv_r6 - 6.0 * wm.c6_OO) * inv_r6
+                * inv_r2 * ljp * in_rc)
+        if alpha > 0.0:
+            ar = alpha * r
+            expmx2 = torch.exp(-ar * ar)
+            erfc_ar = _erfc_pos(ar, expmx2)
+            gauss = TWO_OVER_SQRT_PI * ar * expmx2
+        else:
+            erfc_ar = torch.ones_like(r)
+            gauss = torch.zeros_like(r)
+        if style == "dsf":
+            u_r = erfc_ar / r - e_sh + f_sh * (r - rc)
+            w_r = (erfc_ar + gauss) * inv_r2 / r - f_sh / r
+        else:
+            u_r = erfc_ar / r
+            w_r = (erfc_ar + gauss) * inv_r2 / r
+        u_r = u_r * in_rc
+        w_r = w_r * in_rc
+        qj = tile[..., 3, :][..., None, :]
+        kqq = units.QQR2E * qi[..., :, None] * qj
+        fpair = f_lj + kqq * w_r
+        out[..., :6, :] += torch.stack(
+            [torch.sum(fpair * dx[0], dim=-1),
+             torch.sum(fpair * dx[1], dim=-1),
+             torch.sum(fpair * dx[2], dim=-1),
+             0.5 * torch.sum(e_lj_p, dim=-1),
+             0.5 * torch.sum(kqq * u_r, dim=-1),
+             units.QQR2E * torch.sum(qj * u_r, dim=-1)], dim=-2)
+    return out
+
+
+def water_water_tally(wxg, wvalid, wm: WaterModel, p: TileParams, box, *,
+                      style, alpha, rc):
+    """The full-tally water-water block through K2 (the counterpart of
+    the JAX package's ``pallas_ww.water_water_pallas``, a drop-in for
+    :func:`water_water` at grid ≥ 3): packs the tiles, launches the CUDA
+    kernel for a CUDA tensor or runs the plain version for a CPU tensor,
+    and returns (e_lj, e_coul, f (3, gx, gy, gz, A), eatom, phi)."""
+    wt = pack_water_tiles(wxg, wvalid, wm, p)
+    kw = dict(style=style, alpha=alpha, rc=rc)
+    if wt.is_cuda:
+        out = cuda_ww.water_water_tally_cuda(wt, box, wm, p, **kw)
+    elif wt.device.type == "cpu":
+        out = water_water_tally_plain(wt, box, wm, p, **kw)
+    else:
+        raise ValueError(f"water_water_tally: no kernel for {wt.device}")
+    f = torch.movedim(out[..., :3, :], -2, 0)
+    return (torch.sum(out[..., 3, :]), torch.sum(out[..., 4, :]), f,
+            out[..., 3, :] + out[..., 4, :], out[..., 5, :])
+
+
+def water_intra_ewald_correction(wm: WaterModel, n_waters, alpha: float):
+    """Constant energy correction for rigid-water intra-molecular pairs
+    under Ewald: the same-molecule mask removes the real-space −erf
+    compensation that the reciprocal sum needs. Rigid geometry makes it a
+    constant; its internal forces do no work on a rigid body."""
+    qO, qH = wm.q_pattern[0], wm.q_pattern[1]
+    e = (2.0 * qO * qH * math.erf(alpha * wm.d_OH) / wm.d_OH
+         + qH * qH * math.erf(alpha * wm.d_HH) / wm.d_HH)
+    return -units.QQR2E * e * n_waters

@@ -63,6 +63,15 @@ class TiledState:
     nhc_xi: torch.Tensor
     nhc_lam_xi: torch.Tensor
     ext_work: torch.Tensor  # () cumulative thermostat energy injection
+    # (Ns,) reciprocal-space φ on solute atoms from the last k-space
+    # evaluation: the k-space MTS carry, kept across run calls so λ forces
+    # between kspace_every boundaries use the stale φ (zeros before the
+    # first evaluation and without k-space)
+    phi_recip_s: torch.Tensor
+    # host copy of `step`, advanced with it: the MTS boundary test
+    # (step % kspace_every == 0) reads it, so choosing whether to run PME
+    # never waits for the device
+    step_host: int
 
 
 @dataclasses.dataclass
@@ -397,6 +406,8 @@ def to_tiled(ts: TiledSystem, state: SystemState) -> TiledState:
         step=state.step.to(dev), nhc_xi=state.nhc_xi.to(dev),
         nhc_lam_xi=state.nhc_lam_xi.to(dev),
         ext_work=state.ext_work.to(dev),
+        phi_recip_s=torch.zeros((Ns,), dtype=dtype, device=dev),
+        step_host=int(state.step),
     )
 
 
@@ -437,7 +448,9 @@ def retile(ts: TiledSystem, tstate: TiledState, W: int):
     state = to_canonical(ts, tstate)
     ts2 = copy.copy(ts)
     ts2.params = dataclasses.replace(ts.params, W=W)
-    return ts2, to_tiled(ts2, state)
+    # the k-space MTS carry is per solute atom, independent of the tiles
+    return ts2, dataclasses.replace(to_tiled(ts2, state),
+                                    phi_recip_s=tstate.phi_recip_s)
 
 
 # ---------------------------------------------------------------------------

@@ -112,13 +112,18 @@ def test_minimize_lowers_energy(case):
 
 
 def test_unported_paths_raise(case):
-    _, _, tts, tst = case
-    with pytest.raises(NotImplementedError, match="PME"):
+    _, _, tts, _ = case
+    # factorized-Ewald k-space (anything but PMEParams) waits for the
+    # reference-engine slice; a live box needs PME in any case
+    with pytest.raises(NotImplementedError, match="factorized-Ewald"):
         TiledEngine(tts, kspace_ep=object())
+    with pytest.raises(ValueError, match="kspace_live_box requires PME"):
+        TiledEngine(tts, EngineConfig(kspace_live_box=True),
+                    kspace_ep=object())
     with pytest.raises(NotImplementedError, match="metadynamics"):
         TiledEngine(tts, metad=object())
-    with pytest.raises(NotImplementedError, match="K2"):
-        TiledEngine(tts).compute_forces(tst, need_tally=True)
+    with pytest.raises(ValueError, match="kspace_every"):
+        TiledEngine(tts, EngineConfig(kspace_every=0))
 
 
 def _imported_modules(path):
