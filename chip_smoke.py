@@ -56,10 +56,11 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOPS_PER_PAIR = 76 + 14 / 9
 # ... in ww_tally.cu's pair loop, an FMA as 2 and rint, division, sqrt and
 # exp as 1 each: 12 min image, 5 r², 3 weight and clamp, 2 for 1/r² and r,
-# 11 LJ (on every pair, masked), 18 erfc and gaussian, 4 u and w, 2
-# cutoff masks, 13 charge product, force and φ sums, 3 differences, 4
-# masks; the DSF shifts add 6
-FLOPS_PER_PAIR_TALLY = {"cut": 77, "dsf": 83}
+# 18 erfc and gaussian, 4 u and w, 2 cutoff masks, 13 charge product,
+# force and φ sums, 3 differences, 4 masks, plus 11 for LJ on the O-O
+# ninth of the pairs (the kernel masks it on every pair; the function
+# needs it on those only); the DSF shifts add 6
+FLOPS_PER_PAIR_TALLY = {"cut": 66 + 11 / 9, "dsf": 72 + 11 / 9}
 # agreement of kernel and plain version, both float32 sums: energies
 # within rtol 1e-5 plus atol 1e-4 kcal/mol (the tolerance
 # tests/test_pallas_ww.py holds the JAX package's two water-water paths
@@ -76,21 +77,22 @@ TOL_F_SCALED = 1e-5
 TOL_F_SCALED_K1 = 3e-5
 # PME on the card against the same call on the CPU, both float32 with
 # different FFTs and sum orders: energy rtol 1e-5; forces and φ within
-# 5e-4 of their max. Float32 PME is itself 1-2e-4 of max from float64
-# (the truncated-power B-splines cancel terms of ~1e3 down to ≤ 1), and
-# the card-CPU difference measured 1.95e-4 at the production tiles; a
+# 5e-4 of their max. Float32 PME is itself 1.1-1.4e-4 of max from
+# float64 (the truncated-power B-splines cancel terms of ~1e3 down to ≤ 1;
+# tests/test_torch_pme.py::test_pme_float32_against_float64), and the
+# card-CPU difference measured 1.95e-4 at the production tiles; a
 # wrong mesh, FFT or spline term gives errors of order 1. TF32 is
 # checked off directly
 TOL_PME_E_REL = 1e-5
 TOL_PME_SCALED = 5e-4
 # K2 against K1 through compute_forces at 'cut' α 0.30: K1 screens with
-# the reference's degree-10 Chebyshev fit of erfc, whose error grows with
-# α·rc (1.2e-6 absolute at α 0.30, 4e-8 at 0.2). Measured on the CPU on a
-# 3,001-atom box against float64: water-water e_coul 1.2e-4 relative and
-# forces 1.3e-5 of max for K1, 3.3e-5 and 2e-6 for K2 (A–S erfc). So the
-# bars tests/test_tiled.py sets at DSF α 0.2 (2e-5, 1e-5) cannot hold;
-# these are ~2.5× the measured K1-K2 differences
-TOL_K2_K1_E_REL = 3e-4
+# a degree-10 Chebyshev fit of erfc and K2 with the Abramowitz–Stegun
+# polynomial, and they sum in other orders. On the H100 at the PME
+# production tiles (this script, three runs) they differed by 1.2e-5 –
+# 1.33e-5 relative in e_coul and e_pot and by 1.05e-5 – 1.68e-5 of max
+# in forces, so the forces fail the 1e-5 bar tests/test_tiled.py sets at
+# DSF α 0.2. The bars are ~2-4× the largest readings
+TOL_K2_K1_E_REL = 5e-5
 TOL_K2_K1_F_SCALED = 3e-5
 
 
@@ -123,9 +125,10 @@ def ww_bound_ms(G, A):
 
 
 def tally_bound_ms(G, A, style):
-    """The same for the full-tally kernel: packed tiles (8 rows) in, the
-    8-row output out, and each unordered pair once at its FLOP count."""
-    return _bound(2 * 8 * G * A * 4 + 3 * 4,
+    """The same for the full-tally kernel: the 6 used rows of the packed
+    tiles in, the 6 computed output rows out (the last two rows of each
+    are padding), and each unordered pair once at its FLOP count."""
+    return _bound(2 * 6 * G * A * 4 + 3 * 4,
                   G * A * A * 13.5 * FLOPS_PER_PAIR_TALLY[style])
 
 

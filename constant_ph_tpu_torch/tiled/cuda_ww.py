@@ -79,23 +79,30 @@ def build(names=tuple(SOURCES)) -> dict:
     return out
 
 
+# argument types of each library's C entry points (all return int)
+_ARGTYPES = {
+    "ww_pair": {
+        "ww_pair_param_count": [],
+        "ww_pair_scratch_floats": [ctypes.c_int, ctypes.c_int],
+        "ww_pair_forward": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                            + [ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p]),
+    },
+    "ww_tally": {
+        "ww_tally_param_count": [],
+        "ww_tally_forward": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p]),
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(build((name,))[name][0])
-    getattr(lib, f"{name}_param_count").restype = ctypes.c_int
-    getattr(lib, f"{name}_param_count").argtypes = []
-    if name == "ww_pair":
-        lib.ww_pair_scratch_floats.restype = ctypes.c_int
-        lib.ww_pair_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.ww_pair_forward.restype = ctypes.c_int
-        lib.ww_pair_forward.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    else:
-        lib.ww_tally_forward.restype = ctypes.c_int
-        lib.ww_tally_forward.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for fn, argtypes in _ARGTYPES[name].items():
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = argtypes
     if getattr(lib, f"{name}_param_count")() != len(_PARAM_ORDER[name]):
         raise RuntimeError(f"{name}.cu parameter layout does not match "
                            f"cuda_ww._PARAM_ORDER[{name!r}]")

@@ -94,11 +94,13 @@ class TiledEngine:
         self.cfg = config
         self.bias = bias
         self.kspace_ep = kspace_ep
-        # use_pallas_ww: False or "fast" = the hot-path kernel K1; True =
-        # the full-tally kernel K2 on every force evaluation. Below 3 cells
-        # per dim neither applies and the plain tally path runs
-        self.use_pallas_ww = (use_pallas_ww
-                              if min(tsys.params.grid) >= 3 else False)
+        # use_pallas_ww (the JAX package's name, kept for call-site
+        # parity): True runs the full-tally kernel K2 on every force
+        # evaluation; False, or the JAX package's "fast", the hot-path
+        # kernel K1. Below 3 cells per dim neither applies and the plain
+        # tally path runs
+        self.use_pallas_ww = (use_pallas_ww is True
+                              and min(tsys.params.grid) >= 3)
         self.device = tsys.device
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
@@ -161,13 +163,13 @@ class TiledEngine:
         wvg = st.wvalid.reshape(gx, gy, gz, W)
 
         fast_ok = min(p.grid) >= 3 and not need_tally
-        if fast_ok and self.use_pallas_ww in (False, "fast"):
+        if self.use_pallas_ww:
+            e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water_tally(
+                wxg, wvg, ts.water, p, box, **kw)
+        elif fast_ok:
             e_lj_ww, e_c_ww, f_ww = tforces.water_water_fast(
                 wxg, ts.water, p, box, **kw)
             eatom_ww = torch.zeros_like(wxg[0])
-        elif self.use_pallas_ww is True:
-            e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water_tally(
-                wxg, wvg, ts.water, p, box, **kw)
         else:
             e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water(
                 wxg, wvg, ts.water, p, box, **kw)

@@ -16,16 +16,15 @@ taken in other orders):
 - engine compute_forces with PME (JAX under jit, which fuses the
   contractions otherwise): forces, φ, dU/dλ, f_λ and tallies scaled
   within 2.5e-4 (measured ≤ 1.25e-4, on fw, whose max is only 7.1
-  kcal/mol/Å on this dilute box; both packages' float32 PME forces are
-  ~1.1e-4 of their max from a float64 evaluation of the same formulas).
+  kcal/mol/Å on this dilute box; the port's float32 PME forces are
+  1.1e-4 – 1.4e-4 of their max from its own float64 evaluation, which
+  test_pme_float32_against_float64 measures and bounds at 3e-4).
   Energies within rtol 2e-5 plus an atol of 2e-5 of the self term
   Cα/√π·Σq² (0.72 kcal/mol here; measured 0.26, the Σq² sum above).
-- A 2-block × 4-step NVE trajectory at kspace_every = 2 (thermostat
-  "nve", λ thermostat "none") from the same JAX-built state: positions
-  within 1e-4 Å, velocities 2e-5 Å/fs, λ 1e-6, h_conserved − e_kspace
-  rtol 2e-6 (the bars of test_nve_trajectory_follows_jax), e_kspace
-  within the self-term atol above, and e_kspace non-zero on exactly the
-  h_valid rows.
+
+The NVE trajectory at kspace_every = 2 is in test_torch_pme_nve.py: its
+JAX run loop alone takes ~40 s to compile, so it runs as a file of its
+own on another worker.
 """
 import dataclasses
 
@@ -52,17 +51,23 @@ torch.set_num_threads(1)
 ALPHA = 0.35
 MESH = dict(spacing=1.5, p=6)
 NVE = dict(dt=1.0, thermostat="nve", lambda_thermostat="none",
-           rebuild_every=4)
+           rebuild_every=4)   # shared with test_torch_pme_nve.py
 
 
-@pytest.fixture(scope="module")
-def case():
+def build_case():
+    """(jts, jst, tts, tst, jpp, tpp): the JAX tiles, state and PME
+    params, and the port's counterparts."""
     _, jts, jst = jax_tiled("cut", ALPHA)
     tts, tst = port_of(jts, jst)
     jpp = jpme.make_pme_params(np.asarray(jst.box), jts.params.grid, ALPHA,
                                **MESH)
     return jts, jst, tts, tst, jpp, convert.pme_params(fields_dict(jpp),
                                                        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def case():
+    return build_case()
 
 
 def _e_atol(jts, jst):
@@ -138,6 +143,26 @@ def test_pme_recip_tiled_matches(case, need_water_phi, live_box):
             _scaled_close(g.numpy(), r, 2e-6, name)
 
 
+def test_pme_float32_against_float64(case):
+    """The port's float32 PME against the same call in float64 (params
+    and inputs cast up): the truncated-power B-splines cancel terms of
+    ~1e3, so float32 forces and φ sit 1.1e-4 – 1.4e-4 of their max from
+    float64 here, and the energy 1.6e-7 relative. Bars 3e-4 and 1e-6."""
+    jts, jst, _, _, _, tpp = case
+    args = [torch.tensor(a) for a in _recip_inputs(jts, jst)]
+    p64 = dataclasses.replace(tpp, **{
+        f.name: getattr(tpp, f.name).double() for f in dataclasses.fields(tpp)
+        if isinstance(getattr(tpp, f.name), torch.Tensor)
+        and getattr(tpp, f.name).is_floating_point()})
+    got = tpme.pme_recip_tiled(*args, tpp, need_water_phi=True)
+    ref = tpme.pme_recip_tiled(*(a.double() for a in args), p64,
+                               need_water_phi=True)
+    assert ref[0].dtype == torch.float64
+    np.testing.assert_allclose(float(got[0]), float(ref[0]), rtol=1e-6)
+    for g, r, name in zip(got[1:], ref[1:], ("fw", "fs", "phi_s", "phi_w")):
+        _scaled_close(g.double().numpy(), r.numpy(), 3e-4, name)
+
+
 @pytest.mark.parametrize("need_tally", [False, True],
                          ids=["hot-path", "tally"])
 def test_engine_pme_compute_forces_and_Hs(case, need_tally):
@@ -171,37 +196,3 @@ def test_engine_pme_compute_forces_and_Hs(case, need_tally):
         want = float(got.e_lj + got.e_coul + got.e_bonded + got.e_kspace
                      - teng.e_corr)
         np.testing.assert_allclose(float(HA), want, rtol=1e-3)
-
-
-def test_pme_nve_trajectory_follows_jax(case):
-    jts, jst, tts, tst, jpp, tpp = case
-    cfg = dict(NVE, kspace_every=2)
-    jst2, jov, jobs = jax.jit(JEngine(jts, JConfig(**cfg),
-                                      kspace_ep=jpp).make_run(8))(jst)
-    teng = TiledEngine(tts, EngineConfig(**cfg), kspace_ep=tpp)
-    tst2, tov, tobs = teng.make_run(8)(tst)
-    assert bool(tov) == bool(jov) is False
-    np.testing.assert_allclose(tst2.wx.numpy(), np.asarray(jst2.wx),
-                               atol=1e-4)
-    np.testing.assert_allclose(tst2.sx.numpy(), np.asarray(jst2.sx),
-                               atol=1e-4)
-    np.testing.assert_allclose(tst2.wv.numpy(), np.asarray(jst2.wv),
-                               atol=2e-5)
-    np.testing.assert_allclose(tobs.lam.numpy(), np.asarray(jobs.lam),
-                               atol=1e-6)
-    np.testing.assert_allclose(
-        (tobs.h_conserved - tobs.e_kspace).numpy(),
-        np.asarray(jobs.h_conserved - jobs.e_kspace), rtol=2e-6)
-    np.testing.assert_allclose(tobs.e_kspace.numpy(),
-                               np.asarray(jobs.e_kspace), rtol=2e-5,
-                               atol=_e_atol(jts, jst))
-    np.testing.assert_array_equal(tobs.h_valid.numpy(),
-                                  np.asarray(jobs.h_valid))
-    # PME ran on the boundary steps only: the even counters
-    hv = tobs.h_valid.numpy()
-    np.testing.assert_array_equal(hv, np.arange(1, 9) % 2 == 0)
-    np.testing.assert_array_equal(tobs.e_kspace.numpy() != 0.0, hv)
-    # the MTS carry persists in the state, as the JAX package keeps it
-    _scaled_close(tst2.phi_recip_s.numpy(), jst2.phi_recip_s, 2.5e-4,
-                  "phi_recip_s")
-    assert tst2.step_host == int(tst2.step) == 8
