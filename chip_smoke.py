@@ -10,7 +10,11 @@ available or the port's package is not beside it.
 1. Kernel phase: builds csrc/ww_pair.cu (K1) and csrc/ww_tally.cu (K2),
    one nvcc each, started together, and holds each CUDA kernel against its
    plain PyTorch version (tiled.forces.water_water_fast_plain,
-   water_water_tally_plain) on a small dilute box in both Coulomb styles.
+   water_water_tally_plain) on a small dilute box in both Coulomb styles,
+   and K1 on the hard tile set of tiled/hard_tiles.py (stretched
+   molecules, every box face straddled, pairs at rc ± 0.005 Å, a full and
+   a parked cell) in DSF α 0.2, 'cut' α 0.30 and unscreened 'cut'. Every
+   K1 check launches it twice and requires bitwise-equal outputs.
 2. DSF path (the ``entry()`` configuration): solvated_acid (n_side=20,
    DSF rc=8 Å, α=0.2, HMR 3, pH 5) → split_system(skin=0.8,
    tile_safety=1.72) → 400 FIRE steps → 800 Langevin equilibration steps
@@ -28,8 +32,11 @@ available or the port's package is not beside it.
 
 Every path zeroes the kernels' launch counters just before it runs and
 reads them just after; each kernel of a path must have launched once per
-force evaluation. The kernels are timed against their plain versions and
-their bounds at the PME production tiles.
+force evaluation. The kernels are timed (device time, from a CUDA graph
+of 50 calls) against their plain versions and their bounds at the PME
+production tiles, and again with those tiles retiled to W 56 (A 168). K1's bound counts the atom pairs those tiles need
+(tiled.forces.water_pairs_in_cutoff); the whole-stencil figure of the
+first two slices is printed beside it as stencil_bound_ms.
 
 ``--profile`` adds one PME production block under torch.profiler (device
 busy time by kernel and the device's idle share).
@@ -115,13 +122,20 @@ def _bound(nbytes, flops):
                                        else "operations")
 
 
-def ww_bound_ms(G, A):
+def ww_bound_ms(G, A, pairs):
     """Least time for one water-water evaluation: the larger of the bytes
     it must move (wx in, f out) over HBM bandwidth and its FP32 work over
-    the FP32 peak. Work counts each unordered pair once, as the function
-    needs: 13 neighbour tiles of A×A pairs plus half the self tile."""
+    the FP32 peak. Work counts the pairs these tiles need: each unordered
+    atom pair inside rc once (tiled.forces.water_pairs_in_cutoff)."""
+    return _bound(2 * 3 * G * A * 4 + 3 * 4 + 2 * 4, pairs * FLOPS_PER_PAIR)
+
+
+def ww_stencil_bound_ms(G, A):
+    """The same with the work of the whole half stencil, 13 neighbour
+    tiles of A×A pairs plus half the self tile, in or out of the cutoff
+    (the bound of the first two slices, kept for comparison)."""
     return _bound(2 * 3 * G * A * 4 + 3 * 4 + 2 * 4,
-                  G * A * A * 13.5 * FLOPS_PER_PAIR)
+                  G * A * A * 13.5 * FLOPS_PER_PAIR)[0]
 
 
 def tally_bound_ms(G, A, style):
@@ -150,6 +164,32 @@ def e_close(got, ref):
     return abs(got - ref) <= TOL_E_ABS + TOL_E_REL * abs(ref)
 
 
+def graph_ms(fn, n):
+    """Device time of one call of fn: n calls captured in one CUDA graph
+    and the graph replayed between two events, so the host's time to
+    launch each call (the Python wrapper) is not counted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def cuda_ms(fn, n):
     import torch
 
@@ -166,23 +206,34 @@ def cuda_ms(fn, n):
 
 
 def check_ww(ts, st, label, timing=True):
-    """Kernel vs plain version on one tile set; returns the numbers."""
+    """K1 against its plain version on a TiledSystem's tiles."""
+    p = ts.params
+    return check_ww_tiles(st.wx.reshape((3,) + p.grid + (3 * p.W,)),
+                          ts.water, p, st.box, label, style=ts.coul_style,
+                          alpha=ts.alpha, rc=ts.cutoff, timing=timing)
+
+
+def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
+                   timing=False):
+    """K1 against its plain version on one tile set: energies and forces
+    within the bars, and two launches bitwise equal. With ``timing``, the
+    kernel's and the plain version's times, the pairs these tiles need and
+    the bounds. Returns the numbers."""
     import torch
 
-    from constant_ph_tpu_torch.tiled import forces
+    from constant_ph_tpu_torch.tiled import cuda_ww, forces
 
-    p = ts.params
-    gx, gy, gz = p.grid
-    wxg = st.wx.reshape(3, gx, gy, gz, 3 * p.W)
-    kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
+    kw = dict(style=style, alpha=alpha, rc=rc)
 
     def kernel():
-        return forces.water_water_fast(wxg, ts.water, p, st.box, **kw)
+        return forces.water_water_fast(wxg, wm, p, box, **kw)
 
     def plain():
-        return forces.water_water_fast_plain(wxg, ts.water, p, st.box, **kw)
+        return forces.water_water_fast_plain(wxg, wm, p, box, **kw)
 
     got = kernel()
+    evaluated = int(cuda_ww.water_water_cuda.pairs_evaluated)
+    again = kernel()
     ref = plain()
     torch.cuda.synchronize()
     for t in (*got, *ref):
@@ -190,19 +241,26 @@ def check_ww(ts, st, label, timing=True):
             raise RuntimeError(f"{label}: non-finite water-water output")
     if got[2].shape != wxg.shape:
         raise RuntimeError(f"{label}: force shape {tuple(got[2].shape)}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"{label}: two launches of K1 differ")
     e_rel = max(abs(float(got[i]) - float(ref[i]))
                 / max(abs(float(ref[i])), 1e-30) for i in (0, 1))
     e_ok = all(e_close(float(got[i]), float(ref[i])) for i in (0, 1))
     scale = max(1.0, float(torch.abs(ref[2]).max()))
     f_abs = float(torch.abs(got[2] - ref[2]).max())
-    res = dict(label=label, G=p.G, A=3 * p.W, style=ts.coul_style,
+    G, A = p.G, 3 * p.W
+    res = dict(label=label, G=G, A=A, style=style, alpha=alpha,
                e_lj=float(got[0]), e_lj_plain=float(ref[0]),
                e_coul=float(got[1]), e_coul_plain=float(ref[1]),
-               e_rel_err=e_rel, f_abs_err=f_abs, f_scaled_err=f_abs / scale)
+               e_rel_err=e_rel, f_abs_err=f_abs, f_scaled_err=f_abs / scale,
+               bitwise_repeat=True, pairs_evaluated=evaluated)
     if timing:
-        res["ms"] = cuda_ms(kernel, 50)
+        needed = int(forces.water_pairs_in_cutoff(wxg, p, box, rc))
+        res["ms"] = graph_ms(kernel, 50)
         res["plain_ms"] = cuda_ms(plain, 5)
-        res["bound_ms"], res["bound_by"] = ww_bound_ms(p.G, 3 * p.W)
+        res["pairs_needed"] = needed
+        res["bound_ms"], res["bound_by"] = ww_bound_ms(G, A, needed)
+        res["stencil_bound_ms"] = ww_stencil_bound_ms(G, A)
     log(f"[kernel] ww_pair {json.dumps(res)}")
     if not e_ok or f_abs / scale > TOL_F_SCALED_K1:
         raise RuntimeError(f"{label}: CUDA kernel disagrees with its plain "
@@ -255,7 +313,7 @@ def check_tally(ts, st, label, timing=True):
                phi_abs_err=errs["phi"][0], phi_scaled_err=errs["phi"][1],
                eatom_scaled_err=errs["eatom"][1])
     if timing:
-        res["ms"] = cuda_ms(kernel, 50)
+        res["ms"] = graph_ms(kernel, 50)
         res["plain_ms"] = cuda_ms(plain, 5)
         res["bound_ms"], res["bound_by"] = tally_bound_ms(p.G, 3 * p.W,
                                                           ts.coul_style)
@@ -268,11 +326,16 @@ def check_tally(ts, st, label, timing=True):
 
 
 def kernel_phase(dev):
-    """Build the kernel, then check it on a small dilute box (both Coulomb
-    styles)."""
+    """Build the kernels, then check each on a small dilute box (both
+    Coulomb styles) and K1 on the hard tile set (tiled/hard_tiles.py)."""
+    import torch
+
     from constant_ph_tpu_torch.systems.water import solvated_acid
     from constant_ph_tpu_torch.tiled import cuda_ww
-    from constant_ph_tpu_torch.tiled.layout import split_system, to_tiled
+    from constant_ph_tpu_torch.tiled.hard_tiles import (
+        COULOMB, hard_water_tiles)
+    from constant_ph_tpu_torch.tiled.layout import (
+        TileParams, WaterModel, split_system, to_tiled)
 
     t0 = time.perf_counter()
     built = cuda_ww.build()
@@ -281,7 +344,7 @@ def kernel_phase(dev):
         "in parallel)")
     for name, (_, msgs) in built.items():
         for line in msgs.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     for style, alpha in (("dsf", 0.2), ("cut", 0.35)):
         sys_ = solvated_acid(n_side=8, spacing=6.4, cutoff=8.0, seed=12,
@@ -290,6 +353,15 @@ def kernel_phase(dev):
         st = to_tiled(ts, sys_.state)
         check_ww(ts, st, f"dilute-{style}", timing=False)
         check_tally(ts, st, f"dilute-{style}", timing=False)
+    hard = hard_water_tiles()
+    p = TileParams(**hard["params"])
+    wxg = torch.as_tensor(hard["wx"], device=dev).reshape(
+        (3,) + p.grid + (3 * p.W,))
+    box = torch.as_tensor(hard["box"], device=dev)
+    for style, alpha in COULOMB:
+        check_ww_tiles(wxg, WaterModel(**hard["water"]), p, box,
+                       f"hard-{style}-{alpha}", style=style, alpha=alpha,
+                       rc=p.cutoff)
 
 
 def profile_block(run_block, st, ms_step, block):
@@ -316,9 +388,12 @@ def profile_block(run_block, st, ms_step, block):
     log(f"[profile] device busy {busy_ms:.3f} ms/step of {ms_step:.3f}: "
         f"idle share {1.0 - busy_ms / ms_step:.4f}; "
         f"{sum(r[1] for r in rows) / block:.0f} device ops/step")
-    for us, n, key in rows[:12]:
-        log(f"[profile] {us / 1e3 / block:9.4f} ms/step {n / block:6.1f}/step "
-            f"{key[:90]}")
+    # the top rows, and the port's own kernels wherever they rank
+    for i, (us, n, key) in enumerate(rows):
+        if i < 12 or any(k in key for k in ("ww_pair", "ww_tally",
+                                            "energy_sum")):
+            log(f"[profile] {us / 1e3 / block:9.4f} ms/step "
+                f"{n / block:6.1f}/step {key[:90]}")
     return st
 
 
@@ -571,7 +646,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False — needs a GPU",
               file=sys.stderr)
         return 1
-    import constant_ph_tpu_torch  # noqa: F401  (fails outside the repo)
+    # fails outside the repository
+    from constant_ph_tpu_torch.tiled.layout import retile
 
     dev = "cuda"
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -588,6 +664,12 @@ def main():
     st, t_counts, _, _ = tally_path(ts, st, pme["pme"], pme["cfg"])
     k1 = check_ww(ts, st, "pme-production-tiles")
     k2 = check_tally(ts, st, "pme-production-tiles")
+    # both kernels again on the production state at W 56 (A 168), the
+    # width the first two slices timed them at
+    ts56, st56 = retile(ts, st, max(56, ts.params.W))
+    label = f"pme-production-state-A{3 * ts56.params.W}"
+    check_ww(ts56, st56, label)
+    check_tally(ts56, st56, label)
     k1_errs = [c["f_abs_err"] for c in dsf["checks"] + pme["checks"] + [k1]]
     kernels = [
         dict(name="ww_pair", route="cuda",
@@ -596,7 +678,10 @@ def main():
              launches=pme["counts"]["ww_pair"],
              max_abs_err=max(k1_errs),                   # kcal/mol/Å
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
+             bound_by=k1["bound_by"], library_ms=None,
+             stencil_bound_ms=k1["stencil_bound_ms"],
+             pairs_needed=k1["pairs_needed"],
+             pairs_evaluated=k1["pairs_evaluated"]),
         dict(name="ww_tally", route="cuda",
              source="constant_ph_tpu_torch/csrc/ww_tally.cu",
              replaces="constant_ph_tpu/tiled/pallas_ww.py:88",

@@ -8,52 +8,106 @@
 // hot path constant_ph_tpu/tiled/forces.py water_water_fast.
 //
 // Function: wx (3, G, A) float32 contiguous water coordinates, A = 3W
-// slots per cell (O, H1, H2 of each molecule consecutive; empty slots
-// parked far outside the box), box (3,) on the device ->
-//   f (3, G, A) forces, e_out = (e_lj, e_coul).
-// Coulomb on all atom pairs with the degree-10 Chebyshev screening fits
-// g1, g2 in t = min(2r/rc - 1, 1) (DSF or erfc style); 12-6 shifted LJ on
-// O-O pairs only; r^2 clamped at R2_MIN; pairs beyond rc masked. Parked
-// slots drop out through the cutoff, so there is no validity mask.
+// slots per cell (O, H1, H2 of molecule k in slots 3k, 3k+1, 3k+2; empty
+// slots parked far outside the box, all three on one point), box (3,) on
+// the device -> f (3, G, A) forces, e_out = (e_lj, e_coul), n_out = the
+// atom pairs evaluated. Coulomb on all atom pairs with the degree-10
+// Chebyshev screening fits g1, g2 in t = min(2r/rc - 1, 1) (DSF or erfc
+// style); 12-6 shifted LJ on O-O pairs only; r^2 clamped at R2_MIN; pairs
+// beyond rc masked. Parked slots drop out through the cutoff, so there is
+// no validity mask. The 27-cell stencil (26 neighbours with their periodic
+// image shifts, plus the own cell) defines which pairs exist.
 //
-// Accumulation (scheme ii): the full 26-neighbour stencil plus the self
-// cell, with i-side-only sums. Every unordered pair is computed from both
-// of its atoms, which doubles the pair arithmetic of the half stencil but
-// needs no atomics and no j-side write-back, so forces are deterministic
-// and each output element is written by exactly one thread. Energies
-// count every pair twice and carry a global 0.5; they go to per-block
-// partial sums and a second one-block pass adds those in a fixed order.
+// Bound: operations. The function needs each unordered atom pair inside
+// rc once (~2.4 M pairs at 24,001 atoms, rc 8 A, ~78 FP32 operations
+// each: ~3 us at the 67 TFLOP/s FP32 peak); wx in and f out are 0.87 MB
+// (~0.3 us at 3.35 TB/s). The kernel evaluates each in-range pair from
+// both of its molecules (i-side sums, below) and whole molecule pairs
+// (~9 M atom pairs at those tiles), and before that stages the stencil
+// and tests candidates, so it stays well above that bound: staging,
+// candidate tests and pair arithmetic each take a share of its time.
 //
-// Bound: operations. wx is 0.5 MB at 24,001 atoms, while one evaluation
-// is ~80 FP32 operations for each of G*A*(13.5*A) ~ 8e7 pairs (half
-// stencil; this kernel does 27*A*A per cell, about twice that). No tensor
-// core applies (rsqrt, two 10-term Horner fits, masks), so the ceiling is
-// the card's non-tensor FP32 rate. What the design does about it: one
-// block per (cell, 32 i atoms); 8 thread rows split the j loop, so a
-// 24k-atom system launches ~1.3-1.7 k blocks of 256 threads for 132 SMs.
-// Each neighbour tile (3*A floats, <= 2.7 KB) is staged in shared memory
-// once per block with its periodic image shift added while loading
-// (replacing jnp.roll + _roll_shift), and every warp reads the same j
-// (broadcast, no bank conflicts). The LJ term runs inside the same pair
-// loop, only where i and j are both O. The 8 partial sums of each i are
-// added in a fixed order through shared memory.
+// Molecule-pair cull (exact). Work is done per water molecule. Each
+// molecule's radius rho = max(|H1 - O|, |H2 - O|) is computed on the fly
+// (~1 A for water, 0 for a parked molecule). A molecule pair (i, j) is
+// skipped when |O_i - O_j| >= rc + rho_i + rho_j + CULL_MARGIN, with j's
+// image shift added. By the triangle inequality every atom pair of a
+// skipped molecule pair is then >= rc + CULL_MARGIN apart, and the pair
+// term is multiplied by in_rc = 0 for it: skipping changes nothing. The
+// argument holds for any geometry (FIRE from a raw lattice, stretched
+// molecules, parked slots). Rounding: a difference of two stored floats
+// is exact to 2^-24 of itself, so both r^2 in the cull and r^2 of an atom
+// pair are within a few ulp of their exact values, relative to the
+// distance and not to the coordinates; CULL_MARGIN = 0.01 A is >100x
+// that at rc. Pairs that survive the cull but lie beyond rc are masked by
+// in_rc as before. The molecule pair j = i in the own cell is skipped: its
+// 9 pairs are same-molecule pairs, which the function excludes.
+// The cull runs in two steps. A block first lists the stencil molecules
+// within rc + rho_max + rho_j + CULL_MARGIN of the box around its own i
+// molecules' O (rho_max the largest of their radii): a molecule left out
+// is one the per-pair test would skip for every i of the block, since
+// each O_i lies in the box. Then each warp tests only that list against
+// its i molecule. A block of real molecules keeps the real molecules of
+// the stencil and drops the parked ones; a block of parked molecules
+// keeps almost nothing.
 //
-// Kept on purpose: t is clamped at 1 and r^2 at R2_MIN. Parked slots sit
-// ~1e4 A away; unclamped, the Horner polynomial overflows to inf, and
-// inf * in_rc(0) is NaN. rsqrtf stands for lax.rsqrt; the file builds
-// without --use_fast_math.
+// Accumulation: i-side-only sums over the full stencil. Every unordered
+// pair is computed from both of its molecules; no atomics, no j-side
+// write-back, each element of f written by exactly one lane (zeros for
+// parked slots, whose cull keeps nothing). Energies count every pair twice
+// and carry a global 0.5; they go to per-block partial sums and a second
+// one-block pass adds those in a fixed order. Every sum has a fixed order
+// (lists in stencil and lane order, fixed shuffle trees), so the same
+// inputs give bitwise-identical outputs on every launch.
+//
+// Layout. Grid (ceil(W / 16), G): a block of 16 warps takes 16 molecules
+// of a cell, one i molecule per warp (864 blocks at the 6^3 production
+// grid and W = 56). It stages the whole stencil of its cell once: 27
+// tiles x 3 dims x A floats (54 KB at A = 168, 74 KB at A = 228), copied
+// with cp.async in 16-byte pieces (rows are 16-byte aligned: W is a
+// multiple of 4, so A is a multiple of 12). One pass then adds the image
+// shifts in place (so dx = x_i - (x_j + shift), as the plain version
+// computes it) and stores the 27 W radii. Staging coordinates of all
+// three atoms, rather than O and rho alone with the survivors' H read
+// from L2, keeps the candidate and pair loops on shared memory. The
+// staging is paid once per block, so a block takes 16 molecules rather
+// than 8; at 64 registers a thread (__launch_bounds__(512, 2)) and ~68
+// KB of shared memory at A = 168, two blocks share an SM. Shared memory
+// above 48 KB is dynamic and needs
+// cudaFuncAttributeMaxDynamicSharedMemorySize.
+//
+// Warp-uniform work: the i molecule's 9 coordinates sit in registers.
+// Lanes test 64 listed candidates a round, two each (O-O distance against
+// the cull radius), and compact the survivors with __ballot_sync into a
+// per-warp ring of 128 entries in shared memory, in lane order. Whenever
+// 32 are queued (and once at the end for the rest), each lane takes one
+// surviving molecule pair and does all 9 atom pairs, O-O LJ included, so
+// every lane of a warp runs the same branch. The warp's 9 force sums go
+// through a shuffle tree and one lane writes them.
+//
+// Tensor cores do not apply: each pair is an rsqrt, two 10-term Horner
+// chains and masks, not a product of matrices. r^2 as a matrix product
+// would run in TF32, whose ~3 digits cannot place r^2 against rc^2; the
+// port keeps coordinates and forces in float32 (docs/DESIGN.md section 7).
+//
+// Kept on purpose: t is clamped at 1 and r^2 at R2_MIN. A surviving pair
+// may still be far beyond rc; unclamped, the Horner polynomial overflows
+// to inf, and inf * in_rc(0) is NaN. rsqrtf stands for lax.rsqrt; the
+// file builds without --use_fast_math.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NCOEF = 11;          // degree-10 screening fits
-constexpr int TI = 32;             // i atoms per block (threadIdx.x)
-constexpr int TJ = 8;              // j lanes per i atom (threadIdx.y)
-constexpr int NT = TI * TJ;
-constexpr int NSEG = 27;           // 26 neighbours + self
+constexpr int WARPS = 16;          // warps per block, one i molecule each
+constexpr int NT = 32 * WARPS;
+constexpr int NSEG = 27;           // 26 neighbours + own cell
 constexpr int SELF_SEG = 13;       // offset (0, 0, 0)
+constexpr int RING = 128;          // survivor ring per warp (< 96 queued)
 constexpr float R2_MIN = 1.0e-4f;
+constexpr float CULL_MARGIN = 0.01f;   // A
+constexpr unsigned FULL = 0xffffffffu;
 
 // layout of the host parameter array (tiled/cuda_ww.py _PARAM_ORDER)
 enum {
@@ -69,8 +123,17 @@ struct WWParams {
   float c6, c12, esh, c6x6, c12x12;
   float rc, rc2, two_over_rc, e_sh, f_sh;
   int dsf;
-  int gx, gy, gz, A;
+  int gx, gy, gz, W;
 };
+
+int blocks_per_cell(int W) { return (W + WARPS - 1) / WARPS; }
+
+// dynamic shared memory: staged stencil, radii, candidate list, survivor
+// rings
+size_t smem_bytes(int W) {
+  return sizeof(float) * (size_t)NSEG * (3 * 3 * W + W)
+         + sizeof(short) * ((size_t)NSEG * W + WARPS * RING);
+}
 
 __device__ __forceinline__ int wrap_cell(int c, int g, float L, float* sh) {
   if (c < 0) { *sh = -L; return c + g; }
@@ -79,147 +142,337 @@ __device__ __forceinline__ int wrap_cell(int c, int g, float L, float* sh) {
   return c;
 }
 
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(NT, 2)
 ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
                float* __restrict__ f, float* __restrict__ e_part,
-               const WWParams p) {
-  extern __shared__ float sj[];    // 3 * A: the staged neighbour tile
-  __shared__ float red[3][TJ][TI];
-  __shared__ float ered[2][NT];
+               int* __restrict__ n_part, const WWParams p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int seg_cell[NSEG];
+  __shared__ float seg_shift[NSEG * 3];
+  __shared__ float ibox[7];                  // i box lo, hi; max rho
+  __shared__ int wnear[2][WARPS];
+  __shared__ float wsum[2][WARPS];
+  __shared__ int wcnt[WARPS];
 
-  const int A = p.A;
+  const int W = p.W;
+  const int A = 3 * W;
   const int G = p.gx * p.gy * p.gz;
+  float* sx = smem;                          // [NSEG][3][A], shifted
+  float* rho = sx + NSEG * 3 * A;            // [NSEG][W]
+  // candidates as (segment << 8) | molecule: W < 256 (shared memory
+  // bounds it near 210)
+  short* cand = reinterpret_cast<short*>(rho + NSEG * W);  // [NSEG * W]
+  short* ring = cand + NSEG * W;
   const int cell = blockIdx.y;
-  const int cz = cell % p.gz;
-  const int cy = (cell / p.gz) % p.gy;
-  const int cx = cell / (p.gz * p.gy);
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TI + tx;
-  const int i = blockIdx.x * TI + tx;
-  const bool has_i = i < A;
-  const float Lx = box[0], Ly = box[1], Lz = box[2];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  ring += warp * RING;
 
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (has_i) {
-    xi = wx[(0 * G + cell) * A + i];
-    yi = wx[(1 * G + cell) * A + i];
-    zi = wx[(2 * G + cell) * A + i];
-  }
-  const int imol = i / 3;
-  const bool iO = (i % 3) == 0;
-  const float kO = iO ? p.kOO : p.kOH;   // charge product with a j O
-  const float kH = iO ? p.kOH : p.kHH;   // ... with a j H
-
-  float fx = 0.f, fy = 0.f, fz = 0.f, elj = 0.f, ecoul = 0.f;
-
-  for (int s = 0; s < NSEG; ++s) {
+  if (tid < NSEG) {
+    const int cz = cell % p.gz;
+    const int cy = (cell / p.gz) % p.gy;
+    const int cx = cell / (p.gz * p.gy);
     float shx, shy, shz;
-    const int nx = wrap_cell(cx + s / 9 - 1, p.gx, Lx, &shx);
-    const int ny = wrap_cell(cy + (s / 3) % 3 - 1, p.gy, Ly, &shy);
-    const int nz = wrap_cell(cz + s % 3 - 1, p.gz, Lz, &shz);
-    const int ncell = (nx * p.gy + ny) * p.gz + nz;
-    const bool self_seg = s == SELF_SEG;
-
-    __syncthreads();               // the previous tile is no longer read
-    for (int a = tid; a < A; a += NT) {
-      sj[a] = wx[(0 * G + ncell) * A + a] + shx;
-      sj[A + a] = wx[(1 * G + ncell) * A + a] + shy;
-      sj[2 * A + a] = wx[(2 * G + ncell) * A + a] + shz;
-    }
-    __syncthreads();
-    if (!has_i) continue;
-
-    for (int j = ty; j < A; j += TJ) {
-      const float dx = xi - sj[j];
-      const float dy = yi - sj[A + j];
-      const float dz = zi - sj[2 * A + j];
-      const float r2 = fmaxf(dx * dx + dy * dy + dz * dz, R2_MIN);
-      const float in_rc = r2 < p.rc2 ? 1.f : 0.f;
-      const float inv_r = rsqrtf(r2);
-      const float inv_r2 = inv_r * inv_r;
-      const float r = r2 * inv_r;
-      const float t = fminf(r * p.two_over_rc - 1.f, 1.f);
-      float g1 = p.c1[NCOEF - 1];
-      float g2 = p.c2[NCOEF - 1];
-#pragma unroll
-      for (int k = NCOEF - 2; k >= 0; --k) {
-        g1 = g1 * t + p.c1[k];
-        g2 = g2 * t + p.c2[k];
-      }
-      float u = g1 * inv_r;
-      float w = g2 * inv_r2 * inv_r;
-      if (p.dsf) {
-        u = u - p.e_sh + p.f_sh * (r - p.rc);
-        w = w - p.f_sh * inv_r;
-      }
-      const bool jO = (j % 3) == 0;
-      const bool same_mol = self_seg && (j / 3 == imol);
-      const float kqq = same_mol ? 0.f : (jO ? kO : kH);
-      ecoul += kqq * (u * in_rc);
-      float h = kqq * (w * in_rc);
-      if (iO && jO && !same_mol) {
-        const float inv_r6 = inv_r2 * inv_r2 * inv_r2;
-        elj += ((p.c12 * inv_r6 - p.c6) * inv_r6 - p.esh) * in_rc;
-        h += (p.c12x12 * inv_r6 - p.c6x6) * inv_r6 * inv_r2 * in_rc;
-      }
-      fx += h * dx;
-      fy += h * dy;
-      fz += h * dz;
-    }
+    const int nx = wrap_cell(cx + tid / 9 - 1, p.gx, box[0], &shx);
+    const int ny = wrap_cell(cy + (tid / 3) % 3 - 1, p.gy, box[1], &shy);
+    const int nz = wrap_cell(cz + tid % 3 - 1, p.gz, box[2], &shz);
+    seg_cell[tid] = (nx * p.gy + ny) * p.gz + nz;
+    seg_shift[3 * tid] = shx;
+    seg_shift[3 * tid + 1] = shy;
+    seg_shift[3 * tid + 2] = shz;
   }
-
-  red[0][ty][tx] = fx;
-  red[1][ty][tx] = fy;
-  red[2][ty][tx] = fz;
-  ered[0][tid] = elj;
-  ered[1][tid] = ecoul;
   __syncthreads();
-  if (ty < 3 && has_i) {           // thread row d adds dimension d
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < TJ; ++k) acc += red[ty][k][tx];
-    f[(ty * G + cell) * A + i] = acc;
+
+  // the whole stencil, 16 bytes per cp.async; row = 3 * segment + dim
+  const int A4 = A / 4;
+  for (int k = tid; k < NSEG * 3 * A4; k += NT) {
+    const int row = k / A4;
+    const int c = 4 * (k - row * A4);
+    const int s = row / 3;
+    cp_async16(sx + row * A + c,
+               wx + (size_t)((row - 3 * s) * G + seg_cell[s]) * A + c);
   }
-  for (int st = NT / 2; st > 0; st >>= 1) {
-    if (tid < st) {
-      ered[0][tid] += ered[0][tid + st];
-      ered[1][tid] += ered[1][tid + st];
+  cp_async_wait_all();
+  __syncthreads();
+  // the image shifts added in place, and each molecule's radius
+  for (int c = tid; c < NSEG * W; c += NT) {
+    const int s = c / W;
+    float* b = sx + s * 3 * A + 3 * (c - s * W);
+    float h1 = 0.f, h2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float sh = seg_shift[3 * s + d];
+      const float o = b[d * A] + sh;
+      const float x1 = b[d * A + 1] + sh;
+      const float x2 = b[d * A + 2] + sh;
+      b[d * A] = o;
+      b[d * A + 1] = x1;
+      b[d * A + 2] = x2;
+      h1 += (x1 - o) * (x1 - o);
+      h2 += (x2 - o) * (x2 - o);
+    }
+    rho[c] = sqrtf(fmaxf(h1, h2));
+  }
+  __syncthreads();
+
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const float* own = sx + SELF_SEG * 3 * A;
+  const int m_first = blockIdx.x * WARPS;    // the block's i molecules
+  const int m_end = m_first + WARPS < W ? m_first + WARPS : W;
+
+  // the box around the block's i molecules' O and their largest radius
+  if (tid == 0) {
+    float lo[3] = {own[3 * m_first], own[A + 3 * m_first],
+                   own[2 * A + 3 * m_first]};
+    float hi[3] = {lo[0], lo[1], lo[2]};
+    float rmax = 0.f;
+    for (int mi = m_first; mi < m_end; ++mi) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        lo[d] = fminf(lo[d], own[d * A + 3 * mi]);
+        hi[d] = fmaxf(hi[d], own[d * A + 3 * mi]);
+      }
+      rmax = fmaxf(rmax, rho[SELF_SEG * W + mi]);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      ibox[d] = lo[d];
+      ibox[3 + d] = hi[d];
+    }
+    ibox[6] = rmax;
+  }
+  __syncthreads();
+  // candidates: the stencil molecules within rc + rho_max + rho_j +
+  // CULL_MARGIN of that box, in stencil order. A molecule left out is
+  // one every i molecule of the block would cull.
+  int ncand = 0;
+  for (int base = 0; base < NSEG * W; base += 2 * NT) {
+    bool near[2];
+    int code[2];
+    unsigned ballot[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = base + h * NT + tid;
+      near[h] = false;
+      code[h] = 0;
+      if (c < NSEG * W) {
+        const int s = c / W;
+        const int m = c - s * W;
+        const float* b = sx + s * 3 * A + 3 * m;
+        float dd = 0.f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const float x = b[d * A];
+          const float e = fmaxf(fmaxf(ibox[d] - x, x - ibox[3 + d]), 0.f);
+          dd += e * e;
+        }
+        const float lim = p.rc + CULL_MARGIN + ibox[6] + rho[c];
+        near[h] = dd < lim * lim;
+        code[h] = (s << 8) | m;
+      }
+      ballot[h] = __ballot_sync(FULL, near[h]);
+      if (lane == 0) wnear[h][warp] = __popc(ballot[h]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int at = ncand;
+      for (int k = 0; k < WARPS; ++k) {
+        at += k < warp ? wnear[h][k] : 0;
+        ncand += wnear[h][k];
+      }
+      if (near[h]) cand[at + __popc(ballot[h] & lanes_below)] =
+          static_cast<short>(code[h]);
     }
     __syncthreads();
   }
+
+  const int rounds = (ncand + 63) / 64;      // 64 candidates a round
+  float elj = 0.f, ecoul = 0.f;
+  int kept = 0;                              // molecule pairs evaluated
+
+  const int mi = m_first + warp;
+  if (mi < m_end) {
+    float xi[3][3];                          // [atom][dim]
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) xi[a][d] = own[d * A + 3 * mi + a];
+    const float lim_i = p.rc + CULL_MARGIN + rho[SELF_SEG * W + mi];
+    float fi[3][3] = {};
+    int head = 0, cnt = 0;                   // queued survivors
+    for (int r = 0; r <= rounds; ++r) {
+      if (r < rounds) {
+        // two candidates per lane, tested before either is queued
+        bool keep[2];
+        int code[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 64 * r + 32 * h + lane;
+          keep[h] = false;
+          code[h] = k < ncand ? cand[k] : SELF_SEG << 8 | mi;
+          const int s = code[h] >> 8;
+          const int m = code[h] & 255;
+          if (!(s == SELF_SEG && m == mi)) {
+            const float* b = sx + s * 3 * A + 3 * m;
+            const float dx = xi[0][0] - b[0];
+            const float dy = xi[0][1] - b[A];
+            const float dz = xi[0][2] - b[2 * A];
+            const float lim = lim_i + rho[s * W + m];
+            keep[h] = dx * dx + dy * dy + dz * dz < lim * lim;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned ballot = __ballot_sync(FULL, keep[h]);
+          if (keep[h])
+            ring[(head + cnt + __popc(ballot & lanes_below)) & (RING - 1)] =
+                static_cast<short>(code[h]);
+          cnt += __popc(ballot);
+        }
+      }
+      // whenever 32 are queued, and at the end for the rest: one
+      // surviving molecule pair per lane
+      while (cnt >= 32 || (r == rounds && cnt > 0)) {
+        __syncwarp();
+        const int take = cnt < 32 ? cnt : 32;
+        const int e = lane < take ? ring[(head + lane) & (RING - 1)] : -1;
+        __syncwarp();
+        head = (head + take) & (RING - 1);
+        cnt -= take;
+        kept += take;
+        if (e < 0) continue;
+        const float* bj = sx + (e >> 8) * 3 * A + 3 * (e & 255);
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const float xj = bj[b], yj = bj[A + b], zj = bj[2 * A + b];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float dx = xi[a][0] - xj;
+            const float dy = xi[a][1] - yj;
+            const float dz = xi[a][2] - zj;
+            const float r2 = fmaxf(dx * dx + dy * dy + dz * dz, R2_MIN);
+            const float in_rc = r2 < p.rc2 ? 1.f : 0.f;
+            const float inv_r = rsqrtf(r2);
+            const float inv_r2 = inv_r * inv_r;
+            const float rr = r2 * inv_r;
+            const float t = fminf(rr * p.two_over_rc - 1.f, 1.f);
+            float g1 = p.c1[NCOEF - 1];
+            float g2 = p.c2[NCOEF - 1];
+#pragma unroll
+            for (int k = NCOEF - 2; k >= 0; --k) {
+              g1 = g1 * t + p.c1[k];
+              g2 = g2 * t + p.c2[k];
+            }
+            float u = g1 * inv_r;
+            float w = g2 * inv_r2 * inv_r;
+            if (p.dsf) {
+              u = u - p.e_sh + p.f_sh * (rr - p.rc);
+              w = w - p.f_sh * inv_r;
+            }
+            const float kqq = a == 0 ? (b == 0 ? p.kOO : p.kOH)
+                                     : (b == 0 ? p.kOH : p.kHH);
+            ecoul += kqq * (u * in_rc);
+            float h = kqq * (w * in_rc);
+            if (a == 0 && b == 0) {        // O-O: LJ (unrolled, uniform)
+              const float inv_r6 = inv_r2 * inv_r2 * inv_r2;
+              elj += ((p.c12 * inv_r6 - p.c6) * inv_r6 - p.esh) * in_rc;
+              h += (p.c12x12 * inv_r6 - p.c6x6) * inv_r6 * inv_r2 * in_rc;
+            }
+            fi[a][0] += h * dx;
+            fi[a][1] += h * dy;
+            fi[a][2] += h * dz;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fi[a][d] = warp_sum(fi[a][d]);
+    if (lane == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          f[(size_t)(d * G + cell) * A + 3 * mi + a] = fi[a][d];
+    }
+  }
+
+  elj = warp_sum(elj);
+  ecoul = warp_sum(ecoul);
+  if (lane == 0) {
+    wsum[0][warp] = elj;
+    wsum[1][warp] = ecoul;
+    wcnt[warp] = kept;
+  }
+  __syncthreads();
   if (tid == 0) {
-    const int b = blockIdx.y * gridDim.x + blockIdx.x;
-    // every pair was seen from both of its atoms
-    e_part[2 * b] = 0.5f * ered[0][0];
-    e_part[2 * b + 1] = 0.5f * ered[1][0];
+    float a = 0.f, b = 0.f;
+    int n = 0;
+    for (int k = 0; k < WARPS; ++k) {
+      a += wsum[0][k];
+      b += wsum[1][k];
+      n += wcnt[k];
+    }
+    const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+    // every pair was seen from both of its molecules
+    e_part[2 * blk] = 0.5f * a;
+    e_part[2 * blk + 1] = 0.5f * b;
+    n_part[blk] = 9 * n;
   }
 }
 
-// (e_lj, e_coul) = fixed-order sum of the per-block partials
+// (e_lj, e_coul) and the pairs evaluated = fixed-order sums of the
+// per-block partials
 __global__ void __launch_bounds__(NT)
-energy_sum_kernel(const float* __restrict__ e_part, int nblk,
-                  float* __restrict__ e_out) {
+energy_sum_kernel(const float* __restrict__ e_part,
+                  const int* __restrict__ n_part, int nblk,
+                  float* __restrict__ e_out, int* __restrict__ n_out) {
   __shared__ float s[2][NT];
+  __shared__ int sn[NT];
   const int t = threadIdx.x;
   float a = 0.f, b = 0.f;
+  int n = 0;
   for (int k = t; k < nblk; k += NT) {
     a += e_part[2 * k];
     b += e_part[2 * k + 1];
+    n += n_part[k];
   }
   s[0][t] = a;
   s[1][t] = b;
+  sn[t] = n;
   __syncthreads();
   for (int st = NT / 2; st > 0; st >>= 1) {
     if (t < st) {
       s[0][t] += s[0][t + st];
       s[1][t] += s[1][t + st];
+      sn[t] += sn[t + st];
     }
     __syncthreads();
   }
   if (t == 0) {
     e_out[0] = s[0][0];
     e_out[1] = s[1][0];
+    n_out[0] = sn[0];
   }
 }
 
@@ -229,15 +482,19 @@ extern "C" {
 
 int ww_pair_param_count() { return P_COUNT; }
 
-// floats of scratch the caller allocates for the per-block partials
-int ww_pair_scratch_floats(int G, int A) {
-  return 2 * G * ((A + TI - 1) / TI);
-}
+// blocks of the pair kernel: the caller allocates 3 scratch words each
+int ww_pair_blocks(int G, int W) { return G * blocks_per_cell(W); }
 
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = ok).
+// bytes of dynamic shared memory a block of the pair kernel takes
+int ww_pair_smem_bytes(int W) { return static_cast<int>(smem_bytes(W)); }
+
+// Launches both kernels on `stream`; returns the CUDA error (0 = ok).
+// e_part: 2 floats per block, n_part: 1 int per block (scratch);
+// e_out: (e_lj, e_coul); n_out: atom pairs evaluated.
 int ww_pair_forward(const float* wx, const float* box, float* f,
-                    float* e_part, float* e_out, int gx, int gy, int gz,
-                    int A, const float* prm, int dsf, void* stream) {
+                    float* e_part, int* n_part, float* e_out, int* n_out,
+                    int gx, int gy, int gz, int W, const float* prm,
+                    int dsf, void* stream) {
   WWParams p;
   for (int k = 0; k < NCOEF; ++k) {
     p.c1[k] = prm[P_C1 + k];
@@ -260,16 +517,32 @@ int ww_pair_forward(const float* wx, const float* box, float* f,
   p.gx = gx;
   p.gy = gy;
   p.gz = gz;
-  p.A = A;
+  p.W = W;
+  const int G = gx * gy * gz;
 
+  // raise the kernel's dynamic shared memory limit once per new maximum,
+  // so that later calls (and a CUDA graph capturing them) only launch
+  static size_t smem_allowed = 0;
+  const size_t smem = smem_bytes(W);
+  cudaError_t err;
+  if (smem > smem_allowed) {
+    err = cudaFuncSetAttribute(ww_pair_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(
+        ww_pair_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((A + TI - 1) / TI, gx * gy * gz);
-  const dim3 block(TI, TJ);
-  ww_pair_kernel<<<grid, block, 3 * A * sizeof(float), s>>>(wx, box, f,
-                                                           e_part, p);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid(blocks_per_cell(W), G);
+  ww_pair_kernel<<<grid, NT, smem, s>>>(wx, box, f, e_part, n_part, p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  energy_sum_kernel<<<1, NT, 0, s>>>(e_part, grid.x * grid.y, e_out);
+  energy_sum_kernel<<<1, NT, 0, s>>>(e_part, n_part, grid.x * grid.y,
+                                     e_out, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,8 +83,9 @@ def build(names=tuple(SOURCES)) -> dict:
 _ARGTYPES = {
     "ww_pair": {
         "ww_pair_param_count": [],
-        "ww_pair_scratch_floats": [ctypes.c_int, ctypes.c_int],
-        "ww_pair_forward": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        "ww_pair_blocks": [ctypes.c_int, ctypes.c_int],
+        "ww_pair_smem_bytes": [ctypes.c_int],
+        "ww_pair_forward": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                             + [ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_void_p]),
     },
@@ -138,9 +139,12 @@ def _params(wm, style, alpha, rc):
 def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc):
     """The water-water block on the GPU: (e_lj, e_coul, f) with f shaped
     like wxg (3, gx, gy, gz, 3W), as tiled.forces.water_water_fast_plain.
-    Launches on the current stream without synchronising."""
+    Launches on the current stream without synchronising. The atom pairs
+    the kernel evaluated are left, as a 0-d int32 tensor on the device, in
+    ``water_water_cuda.pairs_evaluated``."""
     gx, gy, gz = p.grid
-    G, A = p.G, 3 * p.W
+    G, W = p.G, p.W
+    A = 3 * W
     if min(p.grid) < 3:
         raise ValueError("the CUDA water-water kernel needs grid >= 3 per "
                          "dim (the stencil would alias)")
@@ -154,26 +158,39 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc):
     if not (box.is_cuda and box.dtype == torch.float32
             and box.is_contiguous() and tuple(box.shape) == (3,)):
         raise ValueError("box must be a contiguous float32 CUDA tensor (3,)")
-    if 3 * A * 4 > 48 * 1024 or G > 65535:
-        raise ValueError(f"tile too large for the kernel (A={A}, G={G})")
+    # cp.async copies 16-byte pieces of every tile row
+    if W % 4 or wxg.data_ptr() % 16 or G > 65535:
+        raise ValueError(f"the kernel needs W % 4 == 0, a 16-byte aligned "
+                         f"wxg and G <= 65535 (W={W}, G={G})")
     lib = _lib("ww_pair")
+    # the staged stencil must fit the 227 KB a block can hold, beside the
+    # kernel's < 1 KB of static shared memory
+    smem = lib.ww_pair_smem_bytes(W)
+    if smem > 227 * 1024 - 1024:
+        raise ValueError(f"tile too large for the kernel's shared memory "
+                         f"(W={W}: {smem} bytes)")
     dev = wxg.device
     f = torch.empty_like(wxg)
-    e_part = torch.empty(lib.ww_pair_scratch_floats(G, A),
-                         dtype=torch.float32, device=dev)
-    e_out = torch.empty(2, dtype=torch.float32, device=dev)
+    # one scratch buffer: e_out (2 floats), n_out (1 int), padding, then
+    # the per-block partials (2 floats and 1 int a block)
+    nblk = lib.ww_pair_blocks(G, W)
+    scratch = torch.empty(4 + 3 * nblk, dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     prm = _params(wm, style, alpha, rc)
     err = lib.ww_pair_forward(
-        wxg.data_ptr(), box.data_ptr(), f.data_ptr(), e_part.data_ptr(),
-        e_out.data_ptr(), gx, gy, gz, A, ctypes.addressof(prm),
-        int(style == "dsf"), torch.cuda.current_stream(dev).cuda_stream)
+        wxg.data_ptr(), box.data_ptr(), f.data_ptr(), base + 16,
+        base + 16 + 8 * nblk, base, base + 8, gx, gy, gz, W,
+        ctypes.addressof(prm), int(style == "dsf"),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_pair kernel launch failed: CUDA error {err}")
     water_water_cuda.launches += 1
-    return e_out[0], e_out[1], f
+    water_water_cuda.pairs_evaluated = scratch[2:3].view(torch.int32)[0]
+    return scratch[0], scratch[1], f
 
 
 water_water_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
+water_water_cuda.pairs_evaluated = None   # of the last launch
 
 
 def _tally_params(wm, style, alpha, rc):

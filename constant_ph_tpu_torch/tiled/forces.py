@@ -423,6 +423,32 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
     return e_lj, e_coul, f
 
 
+def water_pairs_in_cutoff(wxg, p: TileParams, box, rc):
+    """The water atom pairs the hot-path function needs: unordered pairs
+    of different molecules with r² < rc², over the half stencil plus half
+    the self tile, masked exactly as water_water_fast_plain masks them
+    (same rolled tiles and shifts, r² clamped at R2_MIN). A 0-d int64
+    tensor on wxg's device; it sets the work in K1's bound."""
+    if min(p.grid) < 3:
+        raise ValueError("water_pairs_in_cutoff needs grid >= 3 per dim")
+    dims = (1, 2, 3)
+    rc2 = rc * rc
+
+    def n_in(xj, mask=None):
+        dx = wxg[..., :, None] - xj[..., None, :]            # (3,...,A,A)
+        r2 = torch.clamp(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2],
+                         min=R2_MIN)
+        inside = r2 < rc2
+        return torch.sum(inside if mask is None else inside & mask)
+
+    n = sum(n_in(torch.roll(wxg, tuple(-o for o in off), dims=dims)
+                 + _roll_shift(box, p.grid, off, wxg.dtype))
+            for off in p.half_stencil)
+    mol = torch.arange(3 * p.W, device=wxg.device) // 3
+    # the self tile holds each pair twice, with bitwise-equal r²
+    return n + n_in(wxg, mol[:, None] != mol[None, :]) // 2
+
+
 def water_water_fast(wxg, wm: WaterModel, p: TileParams, box, *,
                      style, alpha, rc):
     """Hot-path water-water block (forces + total energies). Launches the

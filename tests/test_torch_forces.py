@@ -17,10 +17,13 @@ import pytest
 import torch
 
 from constant_ph_tpu.tiled import forces as jf
+from constant_ph_tpu.tiled import layout as jl
 from constant_ph_tpu.tiled.pallas_ww import water_water_pallas_fast
 from constant_ph_tpu.tiled.shake import TiledWaterShake as JShake
 from constant_ph_tpu_torch.tiled import cuda_ww
 from constant_ph_tpu_torch.tiled import forces as tf
+from constant_ph_tpu_torch.tiled.hard_tiles import COULOMB, hard_water_tiles
+from constant_ph_tpu_torch.tiled.layout import TileParams, WaterModel
 from constant_ph_tpu_torch.tiled.shake import TiledWaterShake
 
 from test_torch_layout import jax_tiled, port_of
@@ -72,6 +75,25 @@ def test_water_water_plain_matches_xla_and_pallas(case):
                                tst.box, **kw)
     for a, b in zip(disp, got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("style,alpha", COULOMB,
+                         ids=[f"{s}-{a}" for s, a in COULOMB])
+def test_water_water_plain_matches_xla_on_hard_tiles(style, alpha):
+    """The oracle of K1's molecule cull, on the tiles that could break it
+    (tiled/hard_tiles.py): stretched molecules, every box face straddled,
+    pairs at rc ± 0.005 Å, a full cell and a parked one."""
+    h = hard_water_tiles()
+    pr = dict(h["params"])
+    jp, tp = jl.TileParams(**pr), TileParams(**pr)
+    kw = dict(style=style, alpha=alpha, rc=pr["cutoff"])
+    g = (3,) + pr["grid"] + (3 * pr["W"],)
+    got = tf.water_water_fast_plain(
+        torch.as_tensor(h["wx"]).reshape(g), WaterModel(**h["water"]), tp,
+        torch.as_tensor(h["box"]), **kw)
+    _assert_ww_close(got, jf.water_water_fast(
+        jnp.asarray(h["wx"]).reshape(g), jl.WaterModel(**h["water"]), jp,
+        jnp.asarray(h["box"]), **kw))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors(case):
