@@ -11,10 +11,13 @@ available or the port's package is not beside it.
    one nvcc each, started together, and holds each CUDA kernel against its
    plain PyTorch version (tiled.forces.water_water_fast_plain,
    water_water_tally_plain) on a small dilute box in both Coulomb styles,
-   and K1 on the hard tile set of tiled/hard_tiles.py (stretched
+   and both on the hard tile set of tiled/hard_tiles.py (stretched
    molecules, every box face straddled, pairs at rc ± 0.005 Å, a full and
-   a parked cell) in DSF α 0.2, 'cut' α 0.30 and unscreened 'cut'. Every
-   K1 check launches it twice and requires bitwise-equal outputs.
+   a parked cell; K2's tiles packed with their own validity) in DSF α
+   0.2, 'cut' α 0.30 and unscreened 'cut'. Every check of either kernel
+   launches it twice and requires bitwise-equal outputs; every K2 check
+   also requires that K2 evaluated at least twice the atom pairs inside
+   rc (each is computed from both of its atoms).
 2. DSF path (the ``entry()`` configuration): solvated_acid (n_side=20,
    DSF rc=8 Å, α=0.2, HMR 3, pH 5) → split_system(skin=0.8,
    tile_safety=1.72) → 400 FIRE steps → 800 Langevin equilibration steps
@@ -28,15 +31,20 @@ available or the port's package is not beside it.
    card's pme_recip_tiled is held against the same call on the CPU.
 4. Tally path on the PME production tiles: blocks with
    TiledEngine(use_pallas_ww=True) (K2 on every force evaluation), the
-   compute_Hs sum rule, and K2 against K1 through compute_forces.
+   compute_Hs sum rule, K2 against K1 through compute_forces, and the
+   float64 breakdown of their force difference (each kernel against its
+   plain version run in float64, and the two float64 plain versions
+   against each other).
 
 Every path zeroes the kernels' launch counters just before it runs and
 reads them just after; each kernel of a path must have launched once per
 force evaluation. The kernels are timed (device time, from a CUDA graph
 of 50 calls) against their plain versions and their bounds at the PME
-production tiles, and again with those tiles retiled to W 56 (A 168). K1's bound counts the atom pairs those tiles need
-(tiled.forces.water_pairs_in_cutoff); the whole-stencil figure of the
-first two slices is printed beside it as stencil_bound_ms.
+production tiles, and again with those tiles retiled to W 56 (A 168).
+Each kernel's bound counts the atom pairs those tiles need
+(tiled.forces.water_pairs_in_cutoff for K1,
+water_pairs_in_cutoff_tally for K2); the whole-stencil figure is printed
+beside it as stencil_bound_ms.
 
 ``--profile`` adds one PME production block under torch.profiler (device
 busy time by kernel and the device's idle share).
@@ -65,8 +73,8 @@ FLOPS_PER_PAIR = 76 + 14 / 9
 # exp as 1 each: 12 min image, 5 r², 3 weight and clamp, 2 for 1/r² and r,
 # 18 erfc and gaussian, 4 u and w, 2 cutoff masks, 13 charge product,
 # force and φ sums, 3 differences, 4 masks, plus 11 for LJ on the O-O
-# ninth of the pairs (the kernel masks it on every pair; the function
-# needs it on those only); the DSF shifts add 6
+# ninth of the pairs (the LJ masks zero it on the others); the DSF
+# shifts add 6
 FLOPS_PER_PAIR_TALLY = {"cut": 66 + 11 / 9, "dsf": 72 + 11 / 9}
 # agreement of kernel and plain version, both float32 sums: energies
 # within rtol 1e-5 plus atol 1e-4 kcal/mol (the tolerance
@@ -77,7 +85,8 @@ FLOPS_PER_PAIR_TALLY = {"cut": 66 + 11 / 9, "dsf": 72 + 11 / 9}
 # roll-back): its force differences reached 1.03e-5 of max|f| (7.4e-4 of
 # 72 kcal/mol/Å) at the equilibrated 24,001-atom tiles, float32 rounding
 # of sums of ~±100 terms, so K1's force bar is 3e-5. K2 and its plain
-# version both sum the full stencil from the i side (measured ≤ 1.8e-6)
+# version both sum the full stencil from the i side, in other orders
+# (measured ≤ 1.6e-6 of max)
 TOL_E_REL = 1e-5
 TOL_E_ABS = 1e-4
 TOL_F_SCALED = 1e-5
@@ -138,12 +147,25 @@ def ww_stencil_bound_ms(G, A):
                   G * A * A * 13.5 * FLOPS_PER_PAIR)[0]
 
 
-def tally_bound_ms(G, A, style):
-    """The same for the full-tally kernel: the 6 used rows of the packed
-    tiles in, the 6 computed output rows out (the last two rows of each
-    are padding), and each unordered pair once at its FLOP count."""
-    return _bound(2 * 6 * G * A * 4 + 3 * 4,
-                  G * A * A * 13.5 * FLOPS_PER_PAIR_TALLY[style])
+def _tally_bytes(G, A):
+    # the 6 used rows of the packed tiles in, the 6 computed output rows
+    # out (the last two rows of each are padding), and the box
+    return 2 * 6 * G * A * 4 + 3 * 4
+
+
+def tally_bound_ms(G, A, style, pairs):
+    """The same for the full-tally kernel: each unordered atom pair
+    inside rc once at its FLOP count
+    (tiled.forces.water_pairs_in_cutoff_tally)."""
+    return _bound(_tally_bytes(G, A), pairs * FLOPS_PER_PAIR_TALLY[style])
+
+
+def tally_stencil_bound_ms(G, A, style):
+    """The same with the work of the whole stencil, G·A²·13.5 unordered
+    pairs in or out of the cutoff (the bound of a kernel without a cull,
+    kept for comparison)."""
+    return _bound(_tally_bytes(G, A),
+                  G * A * A * 13.5 * FLOPS_PER_PAIR_TALLY[style])[0]
 
 
 def zero_counts():
@@ -270,33 +292,51 @@ def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
 
 
 def check_tally(ts, st, label, timing=True):
-    """K2 against its plain version on one tile set; returns the numbers.
-    Energies are the sums of the eatom rows; forces and φ are compared
-    within TOL_F_SCALED of their max."""
-    import torch
-
-    from constant_ph_tpu_torch.tiled import cuda_ww, forces
+    """K2 against its plain version on a TiledSystem's tiles."""
+    from constant_ph_tpu_torch.tiled import forces
 
     p = ts.params
     gx, gy, gz = p.grid
     wt = forces.pack_water_tiles(st.wx.reshape(3, gx, gy, gz, 3 * p.W),
                                  st.wvalid.reshape(gx, gy, gz, p.W),
                                  ts.water, p)
-    kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
+    return check_tally_tiles(wt, st.box, ts.water, p, label,
+                             style=ts.coul_style, alpha=ts.alpha,
+                             rc=ts.cutoff, timing=timing)
+
+
+def check_tally_tiles(wt, box, wm, p, label, *, style, alpha, rc,
+                      timing=False):
+    """K2 against its plain version on one set of packed tiles: energies
+    (sums of the eatom rows) within the bars, forces, eatom and φ within
+    TOL_F_SCALED of their max, zero padding rows, two launches bitwise
+    equal, and at least twice the atom pairs inside rc evaluated. With
+    ``timing``, the kernel's and the plain version's times and the
+    bounds. Returns the numbers."""
+    import torch
+
+    from constant_ph_tpu_torch.tiled import cuda_ww, forces
+
+    kw = dict(style=style, alpha=alpha, rc=rc)
 
     def kernel():
-        return cuda_ww.water_water_tally_cuda(wt, st.box, ts.water, p, **kw)
+        return cuda_ww.water_water_tally_cuda(wt, box, wm, p, **kw)
 
     def plain():
-        return forces.water_water_tally_plain(wt, st.box, ts.water, p, **kw)
+        return forces.water_water_tally_plain(wt, box, wm, p, **kw)
 
     got = kernel()
+    evaluated = int(cuda_ww.water_water_tally_cuda.pairs_evaluated)
+    again = kernel()
     ref = plain()
+    needed = int(forces.water_pairs_in_cutoff_tally(wt, box, p, rc))
     torch.cuda.synchronize()
     if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
         raise RuntimeError(f"{label}: non-finite full-tally output")
     if got.shape != wt.shape or got[..., 6:, :].any():
         raise RuntimeError(f"{label}: bad full-tally output layout")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{label}: two launches of K2 differ")
     e = [float(torch.sum(got[..., r, :])) for r in (3, 4)]
     e_ref = [float(torch.sum(ref[..., r, :])) for r in (3, 4)]
     e_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(e, e_ref))
@@ -306,32 +346,39 @@ def check_tally(ts, st, label, timing=True):
         d = float(torch.abs(got[..., rows, :] - ref[..., rows, :]).max())
         errs[name] = (d, d / max(1.0, float(torch.abs(ref[..., rows, :])
                                             .max())))
-    res = dict(label=label, G=p.G, A=3 * p.W, style=ts.coul_style,
+    G, A = p.G, 3 * p.W
+    res = dict(label=label, G=G, A=A, style=style, alpha=alpha,
                e_lj=e[0], e_lj_plain=e_ref[0], e_coul=e[1],
                e_coul_plain=e_ref[1], e_rel_err=e_rel,
                f_abs_err=errs["f"][0], f_scaled_err=errs["f"][1],
                phi_abs_err=errs["phi"][0], phi_scaled_err=errs["phi"][1],
-               eatom_scaled_err=errs["eatom"][1])
+               eatom_scaled_err=errs["eatom"][1], bitwise_repeat=True,
+               pairs_needed=needed, pairs_evaluated=evaluated)
     if timing:
         res["ms"] = graph_ms(kernel, 50)
         res["plain_ms"] = cuda_ms(plain, 5)
-        res["bound_ms"], res["bound_by"] = tally_bound_ms(p.G, 3 * p.W,
-                                                          ts.coul_style)
+        res["bound_ms"], res["bound_by"] = tally_bound_ms(G, A, style,
+                                                          needed)
+        res["stencil_bound_ms"] = tally_stencil_bound_ms(G, A, style)
     log(f"[kernel] ww_tally {json.dumps(res)}")
     if (not all(e_close(a, b) for a, b in zip(e, e_ref))
             or max(v[1] for v in errs.values()) > TOL_F_SCALED):
         raise RuntimeError(f"{label}: CUDA full-tally kernel disagrees with "
                            f"its plain version ({res})")
+    # every pair inside rc is evaluated from both of its atoms
+    if evaluated < 2 * needed:
+        raise RuntimeError(f"{label}: K2 evaluated {evaluated} atom pairs, "
+                           f"fewer than twice the {needed} inside rc")
     return res
 
 
 def kernel_phase(dev):
     """Build the kernels, then check each on a small dilute box (both
-    Coulomb styles) and K1 on the hard tile set (tiled/hard_tiles.py)."""
+    Coulomb styles) and on the hard tile set (tiled/hard_tiles.py)."""
     import torch
 
     from constant_ph_tpu_torch.systems.water import solvated_acid
-    from constant_ph_tpu_torch.tiled import cuda_ww
+    from constant_ph_tpu_torch.tiled import cuda_ww, forces
     from constant_ph_tpu_torch.tiled.hard_tiles import (
         COULOMB, hard_water_tiles)
     from constant_ph_tpu_torch.tiled.layout import (
@@ -358,10 +405,17 @@ def kernel_phase(dev):
     wxg = torch.as_tensor(hard["wx"], device=dev).reshape(
         (3,) + p.grid + (3 * p.W,))
     box = torch.as_tensor(hard["box"], device=dev)
+    wm = WaterModel(**hard["water"])
+    # K2's tiles carry the hard tiles' own validity (0 on parked slots)
+    wt = forces.pack_water_tiles(
+        wxg, torch.as_tensor(hard["wvalid"], device=dev).reshape(
+            p.grid + (p.W,)), wm, p)
     for style, alpha in COULOMB:
-        check_ww_tiles(wxg, WaterModel(**hard["water"]), p, box,
-                       f"hard-{style}-{alpha}", style=style, alpha=alpha,
+        label = f"hard-{style}-{alpha}"
+        check_ww_tiles(wxg, wm, p, box, label, style=style, alpha=alpha,
                        rc=p.cutoff)
+        check_tally_tiles(wt, box, wm, p, label, style=style, alpha=alpha,
+                          rc=p.cutoff)
 
 
 def profile_block(run_block, st, ms_step, block):
@@ -578,10 +632,13 @@ def check_pme_on_cpu(ts, st, pme):
 def tally_path(ts, st, pme, cfg, n_blocks=4):
     """The PME production tiles through TiledEngine(use_pallas_ww=True):
     sync-free blocks with K2 on every force evaluation (counts zeroed just
-    before, read just after), then the compute_Hs sum rule and K2 against
-    K1 through compute_forces."""
+    before, read just after), then the compute_Hs sum rule, K2 against
+    K1 through compute_forces, and which of them carries the difference
+    (each kernel against its plain version in float64, and the float64
+    plain versions against each other)."""
     import torch
 
+    from constant_ph_tpu_torch.tiled import cuda_ww, forces
     from constant_ph_tpu_torch.tiled.engine import TiledEngine
 
     eng_t = TiledEngine(ts, cfg, kspace_ep=pme, use_pallas_ww=True)
@@ -631,6 +688,33 @@ def tally_path(ts, st, pme, cfg, n_blocks=4):
     hs["f_scaled_k2_k1"] = max(float(torch.abs(f2.fw - f1.fw).max()),
                                float(torch.abs(f2.fs - f1.fs).max())) / scale
     log(f"[tally compute_Hs] {json.dumps(hs)}")
+    # the water-water forces alone, on the same state and scale: each
+    # kernel against its plain version run in float64, and the two
+    # float64 plain versions against each other (the A–S erfc against
+    # the Chebyshev fit, a difference of the functions themselves)
+    p = ts.params
+    gx, gy, gz = p.grid
+    kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
+    wxg = st.wx.reshape(3, gx, gy, gz, 3 * p.W)
+    wt = forces.pack_water_tiles(wxg, st.wvalid.reshape(gx, gy, gz, p.W),
+                                 ts.water, p)
+    box64 = st.box.double()
+
+    def tally_f(out):
+        return torch.movedim(out[..., :3, :], -2, 0).double()
+
+    k2 = tally_f(cuda_ww.water_water_tally_cuda(wt, st.box, ts.water, p,
+                                                **kw))
+    k2_64 = tally_f(forces.water_water_tally_plain(wt.double(), box64,
+                                                   ts.water, p, **kw))
+    k1 = cuda_ww.water_water_cuda(wxg, ts.water, p, st.box, **kw)[2].double()
+    k1_64 = forces.water_water_fast_plain(wxg.double(), ts.water, p, box64,
+                                          **kw)[2]
+    f64 = {name: float(torch.abs(a - b).max()) / scale for name, a, b in (
+        ("k2_vs_plain64", k2, k2_64), ("k1_vs_plain64", k1, k1_64),
+        ("plain64_k2_vs_k1", k2_64, k1_64), ("k2_vs_k1", k2, k1))}
+    hs["ww_f_scaled"] = f64
+    log(f"[tally float64] water-water forces / max|f| {json.dumps(f64)}")
     if hs["rel_err"] > 1e-3:
         raise RuntimeError(f"compute_Hs sum rule fails ({hs})")
     if (max(hs[f"{n}_rel_k2_k1"] for n in ("e_lj", "e_coul", "e_pot"))
@@ -688,7 +772,10 @@ def main():
              launches=t_counts["ww_tally"],
              max_abs_err=max(k2["f_abs_err"], k2["phi_abs_err"]),
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None)]
+             bound_by=k2["bound_by"], library_ms=None,
+             stencil_bound_ms=k2["stencil_bound_ms"],
+             pairs_needed=k2["pairs_needed"],
+             pairs_evaluated=k2["pairs_evaluated"])]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power())

@@ -91,7 +91,8 @@ _ARGTYPES = {
     },
     "ww_tally": {
         "ww_tally_param_count": [],
-        "ww_tally_forward": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        "ww_tally_smem_bytes": [ctypes.c_int],
+        "ww_tally_forward": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p]),
     },
@@ -208,9 +209,12 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc):
     """The full-tally water-water kernel on the GPU: packed tiles wt
     (gx, gy, gz, 8, A) and box (3,) → out (gx, gy, gz, 8, A), as
     tiled.forces.water_water_tally_plain. Launches on the current stream
-    without synchronising."""
+    without synchronising. The atom pairs the kernel evaluated are left,
+    as a 0-d int32 tensor on the device, in
+    ``water_water_tally_cuda.pairs_evaluated``."""
     gx, gy, gz = p.grid
-    G, A = p.G, 3 * p.W
+    G, W = p.G, p.W
+    A = 3 * W
     if min(p.grid) < 3:
         raise ValueError("the CUDA full-tally kernel needs grid >= 3 per "
                          "dim (the 27 offsets must be distinct cells)")
@@ -223,19 +227,30 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc):
     if not (box.is_cuda and box.dtype == torch.float32
             and box.is_contiguous() and tuple(box.shape) == (3,)):
         raise ValueError("box must be a contiguous float32 CUDA tensor (3,)")
-    if 6 * A * 4 > 48 * 1024 or G > 65535:
-        raise ValueError(f"tile too large for the kernel (A={A}, G={G})")
+    # cp.async copies 16-byte pieces of every tile row
+    if W % 4 or wt.data_ptr() % 16 or G > 65535:
+        raise ValueError(f"the kernel needs W % 4 == 0, a 16-byte aligned "
+                         f"wt and G <= 65535 (W={W}, G={G})")
     lib = _lib("ww_tally")
+    # the staged stencil must fit the 227 KB a block can hold, beside the
+    # kernel's < 1 KB of static shared memory
+    smem = lib.ww_tally_smem_bytes(W)
+    if smem > 227 * 1024 - 1024:
+        raise ValueError(f"tile too large for the kernel's shared memory "
+                         f"(W={W}: {smem} bytes)")
     out = torch.empty_like(wt)
+    count = torch.empty(1, dtype=torch.int32, device=wt.device)
     prm = _tally_params(wm, style, alpha, rc)
     err = lib.ww_tally_forward(
-        wt.data_ptr(), box.data_ptr(), out.data_ptr(), gx, gy, gz, A,
-        ctypes.addressof(prm), int(style == "dsf"), int(alpha > 0.0),
-        torch.cuda.current_stream(wt.device).cuda_stream)
+        wt.data_ptr(), box.data_ptr(), out.data_ptr(), count.data_ptr(),
+        gx, gy, gz, W, ctypes.addressof(prm), int(style == "dsf"),
+        int(alpha > 0.0), torch.cuda.current_stream(wt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_tally kernel launch failed: CUDA error {err}")
     water_water_tally_cuda.launches += 1
+    water_water_tally_cuda.pairs_evaluated = count[0]
     return out
 
 
 water_water_tally_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
+water_water_tally_cuda.pairs_evaluated = None   # of the last launch

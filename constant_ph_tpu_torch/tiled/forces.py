@@ -568,6 +568,35 @@ def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
     return out
 
 
+def water_pairs_in_cutoff_tally(wt, box, p: TileParams, rc):
+    """The water atom pairs the full-tally function needs: unordered
+    pairs of different molecules with weight > 0 and minimum-image
+    r² < rc², masked exactly as water_water_tally_plain masks them (same
+    rolled tiles, min image, weights and R2_MIN clamp). The 27 offsets
+    hold each such pair twice, once from each atom, with bitwise-equal r².
+    A 0-d int64 tensor on wt's device; it sets the work in K2's bound."""
+    if min(p.grid) < 3:
+        raise ValueError("water_pairs_in_cutoff_tally needs grid >= 3 per "
+                         "dim")
+    rc2 = rc * rc
+    inv_l = 1.0 / box
+    mol = torch.arange(3 * p.W, device=wt.device) // 3
+    n = torch.zeros((), dtype=torch.int64, device=wt.device)
+    for k, off in enumerate(_STENCIL27):
+        tile = torch.roll(wt, tuple(-o for o in off), dims=(0, 1, 2))
+        r2 = None
+        for d in range(3):
+            dd = wt[..., d, :, None] - tile[..., d, :][..., None, :]
+            dd = dd - box[d] * torch.round(dd * inv_l[d])
+            r2 = dd * dd if r2 is None else r2 + dd * dd
+        w = wt[..., 5, :, None] * tile[..., 5, :][..., None, :]
+        live = w > 0
+        if k == 13:
+            live = live & (mol[:, None] != mol[None, :])
+        n = n + torch.sum(live & (torch.clamp(r2, min=R2_MIN) < rc2))
+    return n // 2
+
+
 def water_water_tally(wxg, wvalid, wm: WaterModel, p: TileParams, box, *,
                       style, alpha, rc):
     """The full-tally water-water block through K2 (the counterpart of

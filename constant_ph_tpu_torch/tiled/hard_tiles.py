@@ -1,8 +1,10 @@
-"""A hard tile set for the water-water kernel K1 (csrc/ww_pair.cu), made
-with numpy from a seed, on a small non-cubic grid.
+"""A hard tile set for the water-water kernels K1 (csrc/ww_pair.cu) and
+K2 (csrc/ww_tally.cu), made with numpy from a seed, on a small non-cubic
+grid.
 
-K1 skips molecule pairs whose O-O distance rules out any atom pair inside
-the cutoff. These tiles hold what such a cull could get wrong:
+Both kernels skip molecule pairs whose O-O distance rules out any atom
+pair inside the cutoff. These tiles hold what such a cull could get
+wrong:
 
 - molecules whose O-H bonds are stretched to 2-3 Å (a cull that assumed
   rigid 1 Å molecules would drop their pairs);
@@ -60,7 +62,8 @@ def _water(o, h1_dir, l1=R_OH, l2=R_OH, rng=None):
 
 
 def hard_water_tiles(seed=0, grid=(3, 4, 5), W=24, cutoff=8.0):
-    """Returns dict(wx (3, G, 3W) float32, box (3,) float32, params (the
+    """Returns dict(wx (3, G, 3W) float32, wvalid (G, W) float32 (1 for
+    a molecule, 0 for a parked slot), box (3,) float32, params (the
     TileParams fields), water (WaterModel fields), probes: the placed
     pairs as dicts a=(cell, slot), b=(cell, slot), r=target distance)."""
     rng = np.random.default_rng(seed)
@@ -183,8 +186,9 @@ def hard_water_tiles(seed=0, grid=(3, 4, 5), W=24, cutoff=8.0):
         fill[cid] += 1
     offsets = tuple((ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
                     for oz in (-1, 0, 1) if (ox, oy, oz) > (-ox, -oy, -oz))
+    wvalid = (np.arange(W)[None, :] < fill[:, None]).astype(np.float32)
     return dict(
-        wx=wx.astype(np.float32), box=box.astype(np.float32),
+        wx=wx.astype(np.float32), wvalid=wvalid, box=box.astype(np.float32),
         params=dict(grid=tuple(int(g) for g in grid), W=W,
                     half_stencil=offsets, cutoff=float(cutoff), skin=0.0),
         water=spce_water(cutoff),
