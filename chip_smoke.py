@@ -21,12 +21,12 @@ available or the port's package is not beside it.
 2. DSF path (the ``entry()`` configuration): solvated_acid (n_side=20,
    DSF rc=8 Å, α=0.2, HMR 3, pH 5) → split_system(skin=0.8,
    tile_safety=1.72) → 400 FIRE steps → 800 Langevin equilibration steps
-   → retile to the measured occupancy → 2 warm-up and 10 measured
+   → retile to the measured occupancy → 2 warm-up and 5 measured
    sync-free production blocks (dt 2 fs, λ Langevin, rebuild_every 12).
 3. PME main path (the ``bench.py`` default) at the same 24,001 atoms:
    'cut' Coulomb α=0.30 rc=8 Å, PME mesh spacing 1.5, p=6 (48³);
    400 FIRE + 800 equilibration steps at kspace_every=1, retile, then 2
-   warm-up and 20 measured 12-step production blocks at kspace_every=2
+   warm-up and 10 measured 12-step production blocks at kspace_every=2
    (impulse MTS), sync-free. PME must run on boundary steps only, and the
    card's pme_recip_tiled is held against the same call on the CPU.
 4. Tally path on the PME production tiles: blocks with
@@ -35,6 +35,25 @@ available or the port's package is not beside it.
    float64 breakdown of their force difference (each kernel against its
    plain version run in float64, and the two float64 plain versions
    against each other).
+5. Campaign phase: the λ-metadynamics titration campaign of
+   examples/titration_metad_multisite.py at its full width
+   (solvated_polypeptide, 27,300 atoms, 20 sites, 8 buffer waters a site,
+   DSF α 0.2, rc 8 Å; grid 6³, W 80 at build, 600 solute atoms) at cut
+   depth: 400 FIRE + 800 Langevin steps, retile to occupancy + 12, TI
+   calibration at site 0 (7 nodes × (12 + 24) steps, finite), ΔG_ref
+   −39.37 installed, then 3 pH rungs × 2 walkers with MetadParams(nbins
+   241, σ 0.05, h0 0.4, γ 30, stride 48): (a) 2 chunks of 48 steps against
+   a frozen bias with each rung's hills merged by deposit_many, (b) a
+   48-step chunk with in-run deposits on a walker per rung, (c) one
+   replica-exchange block with a swap, (d) a poisoned replica flagged by
+   replica_healthy and rolled back bit for bit, (e) the estimators. Gates:
+   K1 launches equal force evaluations, every hill landed (table mass),
+   same-rung tables equal, ext_work moved by ΣΔV, the pH multiset kept, no
+   overflow, finite h_conserved, T in 250–350 K, fractions in [0, 1], and
+   no synchronisation inside the run blocks. Measured: ms per
+   walker-step, K1 on the campaign tiles (time, bound, pairs), the
+   water×solute and solute×solute blocks at Ns 600 (time, memory), and
+   one campaign block under torch.profiler.
 
 Every path zeroes the kernels' launch counters just before it runs and
 reads them just after; each kernel of a path must have launched once per
@@ -418,7 +437,7 @@ def kernel_phase(dev):
                           rc=p.cutoff)
 
 
-def profile_block(run_block, st, ms_step, block):
+def profile_block(run_block, st, ms_step, block, label="profile"):
     """torch.profiler over one production block: device busy time by
     kernel, kernel launches per step, and the device's idle share against
     the unprofiled step time."""
@@ -439,14 +458,14 @@ def profile_block(run_block, st, ms_step, block):
                 if e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3 / block
-    log(f"[profile] device busy {busy_ms:.3f} ms/step of {ms_step:.3f}: "
+    log(f"[{label}] device busy {busy_ms:.3f} ms/step of {ms_step:.3f}: "
         f"idle share {1.0 - busy_ms / ms_step:.4f}; "
         f"{sum(r[1] for r in rows) / block:.0f} device ops/step")
     # the top rows, and the port's own kernels wherever they rank
     for i, (us, n, key) in enumerate(rows):
         if i < 12 or any(k in key for k in ("ww_pair", "ww_tally",
                                             "energy_sum")):
-            log(f"[profile] {us / 1e3 / block:9.4f} ms/step "
+            log(f"[{label}] {us / 1e3 / block:9.4f} ms/step "
                 f"{n / block:6.1f}/step {key[:90]}")
     return st
 
@@ -723,6 +742,376 @@ def tally_path(ts, st, pme, cfg, n_blocks=4):
     return st, counts, res, hs
 
 
+# the production campaign of examples/titration_metad_multisite.py: its
+# build and split (:203-213), the hill protocol and ΔG_ref the committed
+# r5s3 checkpoint ran at, its pH rungs cut to 3 with 2 walkers each
+CAMPAIGN_BUILD = dict(n_residues=40, sites_every=2, box_len=66.0,
+                      water_spacing=3.1, cutoff=8.0, skin=0.8,
+                      coul_style="dsf", alpha=0.2, pH=5.0, dq_scale=1.0,
+                      n_buffer_waters=8)
+CAMPAIGN_SPLIT = dict(skin=0.8, tile_safety=1.72)
+CAMPAIGN_SHAPE = dict(atoms=27300, sites=20, grid=[6, 6, 6], W=80, Ns=600)
+CAMPAIGN_METAD = dict(nbins=241, sigma=0.05, h0=0.4, gamma=30.0, stride=48,
+                      T=300.0)
+CAMPAIGN_DG_REF = -39.37
+CAMPAIGN_PHS = (3.0, 5.0, 7.0)
+CAMPAIGN_WPP = 2
+# steps a chunk (one hill a walker at stride 48) and the TI depth a node
+# (equilibration, sampling)
+CAMPAIGN_CHUNK = 48
+CAMPAIGN_TI = (12, 24)
+
+
+def _hill_mass(lam, mp):
+    """Σ over hills of h0·Σ_grid exp(−(λ_grid − λ)²/2σ²)·dx per site (the
+    table mass each hill would add at full height), float64 on the
+    host. lam: (K, S)."""
+    import numpy as np
+
+    grid = mp.grid().double().numpy()
+    x = grid[None, None, :] - lam.double().cpu().numpy()[:, :, None]
+    return mp.h0 * np.exp(-x * x / (2 * mp.sigma ** 2)).sum(axis=(0, 2)) \
+        * mp.dx
+
+
+def _table_mass(V, mp):
+    return V.double().sum(dim=-1).cpu().numpy() * mp.dx
+
+
+def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
+                  n_eq=800):
+    """The λ-metadynamics titration campaign through the port's entry
+    points, at the production campaign's width and a cut depth: build →
+    relax → retile (occupancy + 12) → TI calibration at site 0 (7 nodes,
+    small depth) → ΔG_ref −39.37 installed → (a) 3 pH rungs × 2 walkers
+    against a frozen bias, 2 chunks, each rung's hills merged with
+    deposit_many; (b) one chunk with in-run deposits on a walker per rung;
+    (c) one replica-exchange block; (d) a poisoned replica flagged and
+    rolled back; (e) the estimators. Counts are zeroed just before the
+    path and read just after; the run blocks never synchronise. The
+    relaxation is the DSF and PME paths' (a 200 + 96-step one left the
+    production box above the T gate). Smaller ``build`` / depths only
+    serve a rehearsal on the CPU. Returns the numbers."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from constant_ph_tpu_torch import metad, titration
+    from constant_ph_tpu_torch.engine import EngineConfig
+    from constant_ph_tpu_torch.lambda_dyn import BiasParams
+    from constant_ph_tpu_torch.parallel import replica
+    from constant_ph_tpu_torch.systems.protein import solvated_polypeptide
+    from constant_ph_tpu_torch.tiled import forces
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+    from constant_ph_tpu_torch.tiled.layout import (
+        retile, split_system, to_tiled)
+
+    t_phase = t0 = time.perf_counter()
+    sys_ = solvated_polypeptide(device=dev, **build)
+    ts = split_system(sys_, device=dev, **CAMPAIGN_SPLIT)
+    st = to_tiled(ts, sys_.state)
+    got = dict(atoms=int(sys_.state.x.shape[0]), sites=ts.spec.n_sites,
+               grid=list(ts.params.grid), W=ts.params.W,
+               Ns=int(ts.solute.q0.shape[0]))
+    log(f"[campaign build] {json.dumps(got)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if shape is not None and got != shape:
+        raise RuntimeError(f"campaign build {got}, expected {shape}")
+    bias = BiasParams()
+    mp = metad.MetadParams(**CAMPAIGN_METAD)
+    eq_block, block, chunk, cal = 8, 12, CAMPAIGN_CHUNK, CAMPAIGN_TI
+    runs = -(-chunk // block) * (block + 1)     # force evaluations a chunk
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    # -- the path: counts zeroed just before, read just after --------------
+    zero_counts()
+    evals = 0
+    cfg_eq = EngineConfig(dt=0.5, thermostat="langevin", T=300.0,
+                          gamma=0.01, lambda_thermostat="langevin",
+                          rebuild_every=eq_block, force_cap=50.0, seed=21)
+    eng_eq = TiledEngine(ts, cfg_eq, bias=bias)
+    t0 = time.perf_counter()
+    st, e_hist = eng_eq.make_minimize(n_min)(st)
+    st, ov_eq, obs_eq = eng_eq.make_run(n_eq)(st)
+    evals += (-(-n_min // eq_block) * eq_block
+              + -(-n_eq // eq_block) * (eq_block + 1))
+    sync()
+    occ = int(st.wvalid.sum(dim=1).max())
+    ts, st = retile(ts, st, -(-(occ + 12) // 4) * 4)
+    log(f"[campaign relax] {n_min} FIRE + {n_eq} Langevin steps: E "
+        f"{float(e_hist[0]):.1f} -> {float(e_hist[-1]):.1f} kcal/mol, T "
+        f"{float(obs_eq.temp[-1]):.1f} K, occ_max {occ} -> W "
+        f"{ts.params.W} in {time.perf_counter() - t0:.1f} s")
+
+    cfg_cal = EngineConfig(dt=1.0, thermostat="langevin", T=300.0,
+                           gamma=0.01, lambda_thermostat="langevin",
+                           rebuild_every=block, seed=22)
+    t0 = time.perf_counter()
+    dG_cal, (nodes, means) = titration.calibrate_dG_ref_tiled(
+        ts, st, cfg_cal, bias=bias, site=0, equil_steps=cal[0],
+        sample_steps=cal[1], return_profile=True)
+    evals += len(nodes) * (-(-cal[0] // block) + -(-cal[1] // block)) * (
+        block + 1)
+    log(f"[campaign calibrate] TI at site 0, {len(nodes)} nodes x "
+        f"({cal[0]} + {cal[1]}) steps: dG_ref {dG_cal:.3f} kcal/mol "
+        f"(<dU/dlam> {np.round(means, 2).tolist()}) in "
+        f"{time.perf_counter() - t0:.1f} s; installing {CAMPAIGN_DG_REF}")
+    if not math.isfinite(dG_cal):
+        raise RuntimeError("campaign TI calibration is not finite")
+    ts.spec = titration.apply_dG_ref(ts.spec, CAMPAIGN_DG_REF)
+
+    # production: titration_metad_multisite.py's config; walkers start in
+    # the basin HH
+    # favours at their pH, against zeroed tables
+    cfg = EngineConfig(dt=2.0, thermostat="langevin", T=300.0, gamma=0.002,
+                       lambda_thermostat="langevin", lambda_gamma=0.05,
+                       rebuild_every=block, lam_min=-0.12, lam_max=1.12,
+                       seed=23)
+    eng = TiledEngine(ts, cfg, bias=bias, metad=mp, metad_frozen=True)
+    S, G, wpp = ts.spec.n_sites, len(CAMPAIGN_PHS), CAMPAIGN_WPP
+    R = G * wpp
+    pK = ts.spec.pK
+    V0, dV0 = metad.init_tables(S, mp, device=st.lam.device)
+    reps, seeds = [], []
+    for g, ph in enumerate(CAMPAIGN_PHS):
+        lam0 = torch.where(pK > ph, 0.05, 0.95).to(st.lam.dtype)
+        for w in range(wpp):
+            reps.append(dataclasses.replace(
+                st, pH=torch.full_like(st.pH, ph), lam=lam0.clone(),
+                v_lam=torch.zeros_like(st.v_lam), metad_v=V0.clone(),
+                metad_dv=dV0.clone()))
+            seeds.append(2000 + g * 131 + w)
+    gens = replica.replica_generators(seeds, st.lam.device)
+    batch = replica.stack_replicas(reps)
+    run = eng.make_run(chunk)
+    # (b)'s engine deposits in the run; (c)'s runner and swap generator
+    eng_dep = TiledEngine(ts, cfg, bias=bias, metad=mp)
+    run_block = eng_dep.make_run(block)
+    rex = replica.make_rex_runner_tiled(eng, block, generators=gens)
+    swap_gen = torch.Generator(device=st.lam.device).manual_seed(24)
+    rows, ovs, merges = [], [], []
+    sync()
+    if dev == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    t_prod = time.perf_counter()
+    # (a) shared walkers: a chunk against the frozen bias, then each
+    # rung's hills (the λ trace at the stride, walkers interleaved
+    # time-major) merged into its table with deposit_many
+    for _ in range(2):
+        outs = [run(s, gen) for s, gen in zip(
+            replica.unstack_replicas(batch), gens)]
+        evals += R * runs
+        batch = replica.stack_replicas([o[0] for o in outs])
+        ovs += [o[1] for o in outs]
+        obs = replica.stack_replicas([o[2] for o in outs])   # (R, T, …)
+        rows.append(obs)
+        lam_tr = obs.lam[:, mp.stride - 1::mp.stride]        # (R, K, S)
+        K = lam_tr.shape[1]
+        seq = lam_tr.reshape(G, wpp, K, S).transpose(1, 2).reshape(
+            G, K * wpp, S)
+        Vg = batch.metad_v.reshape(G, wpp, S, mp.nbins)[:, 0]
+        dVg = batch.metad_dv.reshape(G, wpp, S, mp.nbins)[:, 0]
+        new = [metad.deposit_many(Vg[g], dVg[g], seq[g], mp)
+               for g in range(G)]
+        batch = dataclasses.replace(
+            batch,
+            metad_v=torch.stack([v for v, _ in new]).repeat_interleave(
+                wpp, dim=0),
+            metad_dv=torch.stack([d for _, d in new]).repeat_interleave(
+                wpp, dim=0))
+        merges.append((Vg, seq, batch.metad_v))
+    # (b) in-run deposits: a walker per rung, one chunk in calls of one
+    # block, so each call's booked ΔV is its final ext_work minus the
+    # ext_work of its last step
+    dep = replica.unstack_replicas(batch)[::wpp]
+    dep_gens = gens[::wpp]
+    booked = []
+    for _ in range(-(-chunk // block)):
+        before = [(s.metad_v, s.metad_dv) for s in dep]
+        outs = [run_block(s, gen) for s, gen in zip(dep, dep_gens)]
+        evals += len(dep) * (block + 1)
+        dep = [o[0] for o in outs]
+        ovs += [o[1] for o in outs]
+        rows.append(replica.stack_replicas([o[2] for o in outs]))
+        booked.append([(v0, s.metad_v, s.metad_dv, s.lam,
+                        s.ext_work - o[2].ext_work[-1], s.ext_work)
+                       for v0, s, o in zip(before, dep, outs)])
+    # (c) one replica-exchange block on the six walkers; parity 1 pairs
+    # walkers of neighbouring rungs
+    prev = batch
+    batch, _, accepted, last = rex(batch, swap_gen, 1)
+    evals += R * (block + 1)
+    if dev == "cuda":
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    wall = time.perf_counter() - t_prod
+    counts = read_counts()
+    # -------------------------------------------------------------------
+
+    walker_steps = 2 * R * chunk + G * -(-chunk // block) * block + R * block
+    prod = dict(walker_steps=walker_steps,
+                ms_per_walker_step=wall / walker_steps * 1e3,
+                production_s=wall)
+    temp = torch.cat([o.temp.reshape(-1) for o in rows])
+    h = torch.cat([o.h_conserved.reshape(-1) for o in rows]
+                  + [last.h_conserved])
+    prod.update(T_mean=float(temp.mean()), T_min=float(temp.min()),
+                T_max=float(temp.max()),
+                overflow=bool(torch.stack(ovs).any() | ov_eq),
+                h_conserved_finite=bool(torch.isfinite(h).all()),
+                swaps_accepted=accepted.tolist(),
+                peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                 if dev == "cuda" else None))
+    log(f"[campaign production] {json.dumps(prod)}")
+    log(f"[campaign launches] {json.dumps(counts)}, force evaluations "
+        f"{evals}")
+    if counts != {"ww_pair": evals, "ww_tally": 0}:
+        raise RuntimeError("the campaign path did not run every force "
+                           "evaluation through the CUDA kernel K1")
+    if prod["overflow"] or not prod["h_conserved_finite"]:
+        raise RuntimeError("campaign production overflowed or went "
+                           "non-finite")
+    if not 250.0 < prod["T_mean"] < 350.0:
+        raise RuntimeError(f"campaign temperature {prod['T_mean']} K")
+
+    # every hill landed: each merge adds K·wpp hills per site (their mass
+    # at full height within [0.8, 1] of it: the WT factor of a 2-chunk
+    # fill is above 0.9), and same-rung walkers share their table
+    gates = dict(merge_mass_ratio=[], inrun_hills=[], inrun_booked_err=0.0)
+    for Vg, seq, V_new in merges:
+        for g in range(G):
+            grown = (_table_mass(V_new[g * wpp], mp) - _table_mass(Vg[g], mp))
+            ratio = grown / _hill_mass(seq[g], mp)
+            gates["merge_mass_ratio"].append([float(ratio.min()),
+                                              float(ratio.max())])
+            if not (0.8 <= ratio.min() and ratio.max() <= 1.0 + 1e-4):
+                raise RuntimeError(f"rung {g}: merged tables grew by "
+                                   f"{ratio} of the expected hills")
+            for w in range(1, wpp):
+                if not torch.equal(V_new[g * wpp + w], V_new[g * wpp]):
+                    raise RuntimeError(f"rung {g}: walkers' tables differ")
+    # in-run: one hill per site in exactly one block of the chunk, and
+    # ext_work moved by ΣΔV(λ) of the deposit, up to the float32 rounding
+    # of adding it to the thermostat's accumulated work (a few ulp of
+    # |ext_work|)
+    for r in range(G):
+        hills = 0
+        for calls in booked:
+            (v0, dv0), v1, dv1, lam, moved, work = calls[r]
+            added = _table_mass(v1, mp) - _table_mass(v0, mp)
+            if float(np.abs(added).max()) > 0.0:
+                hills += 1
+                ratio = added / _hill_mass(lam[None], mp)
+                if not (0.8 <= ratio.min() and ratio.max() <= 1.0 + 1e-4):
+                    raise RuntimeError(f"in-run deposit grew the tables by "
+                                       f"{ratio} of a hill")
+            want = torch.sum(metad.lookup(v1, dv1, lam, mp)[0]
+                             - metad.lookup(v0, dv0, lam, mp)[0])
+            err = abs(float(moved) - float(want))
+            gates["inrun_booked_err"] = max(gates["inrun_booked_err"], err)
+            ulp = float(np.spacing(np.float32(abs(float(work)))))
+            if err > 4 * ulp + 1e-5 * abs(float(want)):
+                raise RuntimeError(f"in-run deposit: ext_work moved by "
+                                   f"{float(moved)}, ΣΔV is {float(want)} "
+                                   f"(ext_work {float(work)})")
+        gates["inrun_hills"].append(hills)
+        if hills != 1:
+            raise RuntimeError(f"walker {r}: {hills} in-run deposits in one "
+                               f"chunk of {chunk} steps at stride "
+                               f"{mp.stride}")
+    # the swap keeps the pH multiset
+    if sorted(batch.pH.tolist()) != sorted(prev.pH.tolist()):
+        raise RuntimeError("swap_phs changed the set of pH values")
+    # (d) a poisoned replica is flagged alone and rolled back bit for bit
+    bad = 1
+    poisoned = dataclasses.replace(batch, wv=batch.wv.clone())
+    poisoned.wv[bad, 0, 0, 0] = float("nan")
+    healthy = replica.replica_healthy(poisoned, lam_min=-0.125,
+                                      lam_max=1.125, v_lam_max=0.5)
+    if healthy.tolist() != [r != bad for r in range(R)]:
+        raise RuntimeError(f"replica_healthy flagged {healthy.tolist()}, "
+                           f"not replica {bad} alone")
+    seed_before = [gen.initial_seed() for gen in gens]
+    rolled = replica.rollback_replicas(poisoned, prev, healthy, salt=3,
+                                       generators=gens)
+    for f in dataclasses.fields(rolled):
+        a = getattr(rolled, f.name)
+        if not isinstance(a, torch.Tensor):
+            continue
+        for r in range(R):
+            want = getattr(prev if r == bad else poisoned, f.name)[r]
+            if not torch.equal(a[r], want):
+                raise RuntimeError(f"rollback: replica {r} field {f.name}")
+    if [gen.initial_seed() != s0 for gen, s0 in zip(gens, seed_before)] != [
+            r == bad for r in range(R)]:
+        raise RuntimeError("rollback reseeded other generators than the "
+                           "failed replica's")
+    gates["rollback"] = f"replica {bad} restored bit for bit, reseeded"
+
+    # (e) the estimators on the rungs' tables, at the installed slope
+    Vg = batch.metad_v.reshape(G, wpp, S, mp.nbins)[:, 0]
+    pHs = torch.tensor(CAMPAIGN_PHS, dtype=Vg.dtype, device=Vg.device)
+    slope = bias.switch_slope
+    est = dict(frac=torch.stack([metad.deprotonated_fraction(Vg[g], mp)
+                                 for g in range(G)]),
+               dF=torch.stack([metad.delta_f_sites(Vg[g], mp)
+                               for g in range(G)]))
+    F0 = metad.pooled_intrinsic_profile(Vg, pK, pHs, mp, switch_slope=slope)
+    est["pooled_frac"] = torch.stack([
+        metad.fraction_at_ph(F0, pK, ph, mp, switch_slope=slope)
+        for ph in CAMPAIGN_PHS])
+    F1 = metad.retilt_profile(F0, CAMPAIGN_DG_REF, dG_cal, mp,
+                              switch_slope=slope)
+    est["retilted_frac"] = metad.fraction_at_ph(F1, pK, 5.0, mp,
+                                                switch_slope=slope)
+    est["pooled_dF"] = metad.pooled_delta_f(F0, mp)
+    for k, v in est.items():
+        if not torch.isfinite(v).all():
+            raise RuntimeError(f"estimator {k} is not finite")
+        if "frac" in k and not bool(((v >= 0) & (v <= 1)).all()):
+            raise RuntimeError(f"estimator {k} leaves [0, 1]")
+    gates["estimators"] = {k: [float(v.min()), float(v.max())]
+                           for k, v in est.items()}
+    log(f"[campaign gates] {json.dumps(gates)}")
+
+    # measurements: K1 on the campaign tiles, the solute blocks at Ns 600,
+    # and one production block under the profiler
+    walker = replica.unstack_replicas(batch)[0]
+    res = dict(prod=prod, counts=counts, gates=gates)
+    if dev == "cuda":
+        res["k1"] = check_ww(ts, walker, "campaign-tiles")
+        p = ts.params
+        kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
+        wxg = walker.wx.reshape((3,) + p.grid + (3 * p.W,))
+        qs = eng.charges_solute(walker.lam)
+        blocks = {}
+        for name, fn in (
+                ("water_solute_fast", lambda: forces.water_solute_fast(
+                    wxg, walker.sx, qs, ts.solute, ts.water, p, walker.box,
+                    **kw)),
+                ("solute_solute", lambda: forces.solute_solute(
+                    walker.sx, qs, ts.solute, walker.box, **kw))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            blocks[name] = dict(
+                ms=cuda_ms(fn, 5),
+                peak_extra_gib=(torch.cuda.max_memory_allocated() - base)
+                / 2**30)
+        log(f"[campaign solute blocks] G {p.G}, A {3 * p.W}, Ns "
+            f"{int(ts.solute.q0.shape[0])}: {json.dumps(blocks)}")
+        one = eng.make_run(block)
+        profile_block(lambda s: one(s, gens[0]), walker,
+                      prod["ms_per_walker_step"], block,
+                      label="campaign profile")
+    log(f"[campaign] phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main():
     import torch
 
@@ -739,10 +1128,11 @@ def main():
     t_start = time.perf_counter()
     kernel_phase(dev)
     # the DSF path keeps the bench's relaxation (shorter ones leave the
-    # box above 400 K) and measures half the blocks
-    dsf = md_path(dev, "dsf", n_meas=10)
+    # box above 400 K) and measures a quarter of the blocks, the PME path
+    # half, so the campaign phase fits the script's time
+    dsf = md_path(dev, "dsf", n_meas=5)
     dsf["checks"].append(check_ww(dsf["ts"], dsf["st"], "dsf-production-tiles"))
-    pme = md_path(dev, "pme", profile="--profile" in sys.argv[1:])
+    pme = md_path(dev, "pme", n_meas=10, profile="--profile" in sys.argv[1:])
     ts, st = pme["ts"], pme["st"]
     check_pme_on_cpu(ts, st, pme["pme"])
     st, t_counts, _, _ = tally_path(ts, st, pme["pme"], pme["cfg"])
@@ -754,7 +1144,10 @@ def main():
     label = f"pme-production-state-A{3 * ts56.params.W}"
     check_ww(ts56, st56, label)
     check_tally(ts56, st56, label)
-    k1_errs = [c["f_abs_err"] for c in dsf["checks"] + pme["checks"] + [k1]]
+    camp = campaign_path(dev)
+    k1c = camp["k1"]
+    k1_errs = [c["f_abs_err"]
+               for c in dsf["checks"] + pme["checks"] + [k1, k1c]]
     kernels = [
         dict(name="ww_pair", route="cuda",
              source="constant_ph_tpu_torch/csrc/ww_pair.cu",
@@ -765,7 +1158,13 @@ def main():
              bound_by=k1["bound_by"], library_ms=None,
              stencil_bound_ms=k1["stencil_bound_ms"],
              pairs_needed=k1["pairs_needed"],
-             pairs_evaluated=k1["pairs_evaluated"]),
+             pairs_evaluated=k1["pairs_evaluated"],
+             # the same kernel on the campaign path and its tiles
+             campaign_launches=camp["counts"]["ww_pair"],
+             campaign_ms=k1c["ms"], campaign_plain_ms=k1c["plain_ms"],
+             campaign_bound_ms=k1c["bound_ms"],
+             campaign_pairs_needed=k1c["pairs_needed"],
+             campaign_pairs_evaluated=k1c["pairs_evaluated"]),
         dict(name="ww_tally", route="cuda",
              source="constant_ph_tpu_torch/csrc/ww_tally.cu",
              replaces="constant_ph_tpu/tiled/pallas_ww.py:88",

@@ -7,8 +7,9 @@ tests flatten the JAX package's objects to such dicts, so both packages
 compute on identical inputs; this module never sees a JAX type.
 
 Field names are those of the port's dataclasses; unknown keys (a JAX
-state's PRNG key, its metadynamics tables) are ignored. A tiled state's
-host step counter is taken from its ``step``.
+state's PRNG key) are ignored. A tiled state's host step counter is taken
+from its ``step``, and its metadynamics tables (``metad_v``,
+``metad_dv``) are carried, (0, 0) when metadynamics is off.
 """
 from __future__ import annotations
 

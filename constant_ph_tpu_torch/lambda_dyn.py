@@ -7,6 +7,7 @@ corrections).
 - pH driving term f(λ)·[kT·ln10·(pK − pH) − ΔG_ref]
 - charges q(λ) = q0 + Σ_s λ_s·dq_s (buffer atoms keep each site neutral)
 - exact dU_elec/dλ = Σ_i φ_i·dq_i/dλ
+- multi-site tables from single-site specs (``stack_sites``)
 """
 from __future__ import annotations
 
@@ -115,6 +116,23 @@ def make_single_site(atom_idx, q_prot, q_deprot, pK: float, *,
         dq=torch.as_tensor(dq, dtype=dtype, device=dev).reshape(1, P),
         atom_mask=torch.ones((1, P), dtype=dtype, device=dev),
     )
+
+
+def stack_sites(specs: list) -> LambdaSpec:
+    """Stack single-site specs into one multi-site table (pads P to the
+    largest; pad entries get atom 0 and mask 0)."""
+    P = max(int(s.atom_idx.shape[1]) for s in specs)
+
+    def pad(name):
+        return torch.cat([torch.nn.functional.pad(
+            getattr(s, name), (0, P - int(s.atom_idx.shape[1])))
+            for s in specs])
+
+    return LambdaSpec(
+        pK=torch.cat([s.pK for s in specs]),
+        dG_ref=torch.cat([s.dG_ref for s in specs]),
+        m_lambda=torch.cat([s.m_lambda for s in specs]),
+        atom_idx=pad("atom_idx"), dq=pad("dq"), atom_mask=pad("atom_mask"))
 
 
 def charges(q0, spec: LambdaSpec, lam):

@@ -1,0 +1,200 @@
+"""pH replica exchange on the tiled engine (port of
+constant_ph_tpu/parallel/replica.py).
+
+Replicas are stacked states: every tensor field of a TiledState gains a
+leading replica axis R (``stack_replicas``). The swap move, the health
+checks, the rollback and the metadynamics hill merge work on that stack.
+The run itself loops the engine's ``make_run`` over the replicas (the JAX
+package vmaps it), each replica drawing its Langevin noise from a
+``torch.Generator`` of its own that the runner holds.
+
+Swap move (even/odd alternating neighbour pairs, Metropolis): replicas
+keep their configurations and exchange pH values. The Hamiltonian depends
+on pH only through f(λ)·kT·ln10·(pK − pH) per site, so
+
+    β·Δ = ln10 · (pH_i − pH_j) · (F_i − F_j),   F = Σ_sites f(λ_s)
+
+and no energy is re-evaluated.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from constant_ph_tpu_torch import lambda_dyn, resolve_device, units
+from constant_ph_tpu_torch.engine import Observables
+
+
+def _tensor_fields(state):
+    return [f.name for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)]
+
+
+def stack_replicas(states: list):
+    """Stack per-replica states (TiledState or SystemState) into one
+    batch. Fields that are not tensors (the host step counter) must agree
+    across replicas and stay as they are."""
+    first = states[0]
+    out = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(s, f.name) for s in states]
+        if isinstance(vals[0], torch.Tensor):
+            out[f.name] = torch.stack(vals)
+        else:
+            if any(v != vals[0] for v in vals):
+                raise ValueError(f"replicas disagree on {f.name}: {vals}")
+            out[f.name] = vals[0]
+    return type(first)(**out)
+
+
+def unstack_replicas(batch) -> list:
+    """The inverse of stack_replicas: one state per replica (views into
+    the batch)."""
+    names = _tensor_fields(batch)
+    R = getattr(batch, names[0]).shape[0]
+    return [dataclasses.replace(batch, **{n: getattr(batch, n)[r]
+                                          for n in names})
+            for r in range(R)]
+
+
+def _fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from (seed, data): splitmix64's finaliser over
+    their combination (the port's analogue of jax.random.fold_in)."""
+    m = (1 << 64) - 1
+    x = (seed * 0x9E3779B97F4A7C15 + data + 1) & m
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+    return (x ^ (x >> 31)) & ((1 << 63) - 1)
+
+
+def replica_generators(seeds, device="cuda") -> list:
+    """One torch.Generator per replica, seeded from ``seeds``."""
+    dev = resolve_device(device)
+    return [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
+
+
+def swap_phs(states, generator, bias, parity, u=None):
+    """One even/odd pH-swap sweep over the replica batch (leading axis R).
+
+    parity 0 swaps pairs (0,1),(2,3),…; 1 swaps (1,2),(3,4),…. The
+    Metropolis uniforms ``u`` (R,) are drawn from ``generator`` unless
+    given (the JAX package draws jax.random.uniform(key, (R,))); each pair
+    uses the uniform of its lower index. Returns (new_states,
+    accepted_mask)."""
+    pH = states.pH
+    R = pH.shape[0]
+    dev = pH.device
+    F = torch.sum(lambda_dyn.switching(states.lam, bias)[0], dim=1)   # (R,)
+    idx = torch.arange(R, device=dev)
+    partner = torch.where((idx - parity) % 2 == 0, idx + 1, idx - 1)
+    partner = torch.clamp(partner, 0, R - 1)
+    valid = (partner != idx) & ((partner - parity) >= 0) & (partner < R)
+    # β·ΔH for the swap; accept with min(1, exp(−β·ΔH))
+    beta_dH = units.LN10 * (pH - pH[partner]) * (F - F[partner])
+    low = torch.minimum(idx, partner)
+    if u is None:
+        u = torch.rand((R,), generator=generator, dtype=pH.dtype, device=dev)
+    accept = (u[low] < torch.exp(torch.clamp(-beta_dH, max=0.0))) & valid
+    new_pH = torch.where(accept, pH[partner], pH)
+    return dataclasses.replace(states, pH=new_pH), accept
+
+
+def make_rex_runner(engine, md_steps_per_swap: int):
+    raise NotImplementedError(
+        "replica exchange on the reference engine comes with the "
+        "reference-engine slice (ROADMAP Queue 1 item 10); use "
+        "make_rex_runner_tiled")
+
+
+def make_rex_runner_tiled(engine, md_steps_per_swap: int,
+                          with_stats: bool = False, generators=None):
+    """Replica-exchange block on the tiled engine:
+    block(states, generator, parity) → (states, generator, accept,
+    obs_last), or with ``with_stats=True`` (states, generator, accept,
+    overflow (R,), stats) where stats is {"obs_last": Observables with a
+    leading R axis, "frac_deprot": (R, S) in-block mean of (λ > 0.5)}.
+
+    ``generator`` draws the swap uniforms. Replica r's Langevin noise comes
+    from ``block.generators[r]``: the list given, or one generator per
+    replica made at the first call, seeded from (engine seed, r). Nothing
+    is read back to the host."""
+    run = engine.make_run(md_steps_per_swap)
+
+    def block(states, generator, parity):
+        reps = unstack_replicas(states)
+        if block.generators is None:
+            block.generators = replica_generators(
+                [_fold_in(engine.cfg.seed, r) for r in range(len(reps))],
+                states.pH.device)
+        outs = [run(s, g) for s, g in zip(reps, block.generators)]
+        states = stack_replicas([o[0] for o in outs])
+        overflow = torch.stack([o[1] for o in outs])
+        obs = stack_replicas([o[2] for o in outs])          # (R, T, …)
+        states, accepted = swap_phs(states, generator, engine.bias, parity)
+        last_obs = Observables(**{
+            f.name: getattr(obs, f.name)[:, -1]
+            for f in dataclasses.fields(Observables)})
+        if with_stats:
+            frac = torch.mean((obs.lam > 0.5).to(torch.float32), dim=1)
+            stats = {"obs_last": last_obs, "frac_deprot": frac}
+            return states, generator, accepted, overflow, stats
+        return states, generator, accepted, last_obs
+
+    block.generators = generators
+    return block
+
+
+# -- per-replica failure detection -------------------------------------------
+#
+# One walker of a replica batch can blow up while the others stay healthy;
+# the batch then rolls that replica back to its pre-chunk state and
+# reseeds its generator, so the retry draws another trajectory.
+
+
+def replica_finite(batch) -> torch.Tensor:
+    """(R,) bool: every floating-point tensor of each replica is finite.
+    One pass over the batch; the result stays on the device."""
+    cols = []
+    for name in _tensor_fields(batch):
+        t = getattr(batch, name)
+        if t.is_floating_point():
+            cols.append(torch.isfinite(t).reshape(t.shape[0], -1).all(dim=1))
+    return torch.stack(cols).all(dim=0)
+
+
+def rollback_replicas(batch, prev, fin, salt: int, generators=None):
+    """Restore the replicas where ``fin`` (replica_finite of ``batch``) is
+    False to their pre-chunk state ``prev``; keep the healthy ones. With
+    ``generators`` (one per replica) each failed replica's generator is
+    reseeded from (its seed, 7919 + salt), the port's fold_in of the JAX
+    package's key, so the retry does not replay the blow-up; finding the
+    failed replicas then reads ``fin`` on the host."""
+    def sel(new, old):
+        m = fin.reshape(fin.shape + (1,) * (new.ndim - 1))
+        return torch.where(m, new, old)
+
+    merged = dataclasses.replace(batch, **{
+        n: sel(getattr(batch, n), getattr(prev, n))
+        for n in _tensor_fields(batch)})
+    if generators is not None:
+        for r in torch.nonzero(~fin).reshape(-1).tolist():
+            g = generators[r]
+            g.manual_seed(_fold_in(g.initial_seed(), 7919 + salt))
+    return merged
+
+
+def replica_healthy(batch, lam_min: float = -0.1, lam_max: float = 1.1,
+                    v_lam_max: float = 0.5,
+                    v_atom_max: float = 5.0) -> torch.Tensor:
+    """(R,) bool: finite AND λ inside [lam_min, lam_max] AND |v_λ| ≤
+    v_lam_max AND atom speeds ≤ v_atom_max Å/fs per component. A walker
+    can be corrupt but finite (λ outside the walls, v_λ at 60× thermal);
+    its statistics are lost all the same, so it rolls back like a NaN."""
+    fin = replica_finite(batch)
+    lam_ok = ((batch.lam >= lam_min) & (batch.lam <= lam_max)).all(dim=1)
+    v_ok = (torch.abs(batch.v_lam) <= v_lam_max).all(dim=1)
+    R = batch.lam.shape[0]
+    wv_ok = (torch.abs(batch.wv.reshape(R, -1)) <= v_atom_max).all(dim=1)
+    sv_ok = (torch.abs(batch.sv.reshape(R, -1)) <= v_atom_max).all(dim=1)
+    return fin & lam_ok & v_ok & wv_ok & sv_ok

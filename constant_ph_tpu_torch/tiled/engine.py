@@ -11,12 +11,19 @@ grids below 3 cells per dim, take the plain tally path
 (tiled.forces.water_water). ``make_minimize`` and ``make_run`` return
 functions that loop over ``rebuild_every``-step blocks in Python (the JAX
 package's lax.scan), rebinning at each block start; they never read a
-device value on the host (the MTS boundary test reads the state's host
-step counter), so the caller decides when to synchronise.
+device value on the host (the MTS boundary test and the metadynamics
+deposit test read the state's host step counter), so the caller decides
+when to synchronise.
 
-Not ported yet (each raises NotImplementedError naming the slice that
-brings it): factorized-Ewald k-space (ops/ewald.py, the reference-engine
-slice) and metadynamics.
+With ``metad`` (metad.MetadParams) the λ forces carry the state's
+well-tempered bias tables, and ``make_run`` deposits one hill per site at
+a block boundary whenever the block crossed a multiple of the stride
+(unless ``metad_frozen``). Random numbers come from a ``torch.Generator``:
+the engine's own, or one the caller passes to ``step`` / ``run`` (one per
+replica in parallel/replica.py).
+
+Not ported yet: factorized-Ewald k-space (ops/ewald.py, the
+reference-engine slice; raises NotImplementedError naming it).
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import math
 import numpy as np
 import torch
 
-from constant_ph_tpu_torch import lambda_dyn, units
+from constant_ph_tpu_torch import lambda_dyn, metad as metad_mod, units
 from constant_ph_tpu_torch.engine import EngineConfig, Observables
 from constant_ph_tpu_torch.integrators import nhc_halfstep
 from constant_ph_tpu_torch.lambda_dyn import BiasParams
@@ -70,7 +77,7 @@ class TiledForces:
 class TiledEngine:
     def __init__(self, tsys: TiledSystem, config: EngineConfig = EngineConfig(),
                  bias: BiasParams = BiasParams(), kspace_ep=None,
-                 use_pallas_ww=False, metad=None):
+                 use_pallas_ww=False, metad=None, metad_frozen=False):
         if config.kspace_every < 1:
             raise ValueError("kspace_every must be >= 1")
         if (config.kspace_live_box and kspace_ep is not None
@@ -83,9 +90,8 @@ class TiledEngine:
             raise NotImplementedError(
                 "factorized-Ewald k-space (ops/ewald.py) comes with the "
                 "reference-engine slice; pass PMEParams for PME")
-        if metad is not None:
-            raise NotImplementedError(
-                "metadynamics comes with the campaign-path slice")
+        if metad is not None and tsys.spec is None:
+            raise ValueError("metadynamics needs titratable sites")
         # SHAKE and the force sums need full float32 (no TF32 anywhere)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -94,6 +100,12 @@ class TiledEngine:
         self.cfg = config
         self.bias = bias
         self.kspace_ep = kspace_ep
+        # metadynamics λ bias: states carry matching (S, nbins) tables
+        # (metad.init_tables → TiledState.metad_v / metad_dv). With
+        # metad_frozen the bias is a static potential; otherwise make_run
+        # deposits hills at block boundaries
+        self.metad = metad
+        self.metad_frozen = metad_frozen
         # use_pallas_ww (the JAX package's name, kept for call-site
         # parity): True runs the full-tally kernel K2 on every force
         # evaluation; False, or the JAX package's "fast", the hot-path
@@ -104,6 +116,8 @@ class TiledEngine:
         self.device = tsys.device
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
+        if metad is not None:
+            metad.grid(self.device)   # made once, outside any run block
         self.shake = TiledWaterShake(tsys.water)
         p = tsys.params
         self.W = p.W
@@ -235,6 +249,17 @@ class TiledEngine:
             f_lam, u_site = lambda_dyn.lambda_force(
                 st.lam, dUdlam, ts.spec, st.pH, self.cfg.T, self.bias)
             e_site = torch.sum(u_site)
+            if self.metad is not None:
+                if tuple(st.metad_v.shape) != (ts.spec.n_sites,
+                                               self.metad.nbins):
+                    raise ValueError(
+                        "state carries no metadynamics tables of this "
+                        "shape: set them with metad.init_tables "
+                        "(TiledState.metad_v / metad_dv)")
+                vb, dvb = metad_mod.lookup(st.metad_v, st.metad_dv, st.lam,
+                                           self.metad)
+                f_lam = f_lam - dvb
+                e_site = e_site + torch.sum(vb)
         else:
             dUdlam = f_lam = st.sx.new_zeros((0,))
             e_site = zero
@@ -366,17 +391,19 @@ class TiledEngine:
             frc, fw=frc.fw * torch.clamp(cap / wnorm, max=1.0),
             fs=frc.fs * torch.clamp(cap / snorm, max=1.0))
 
-    def _randn(self, like):
-        return torch.randn(like.shape, generator=self.generator,
+    def _randn(self, like, generator):
+        return torch.randn(like.shape, generator=generator,
                            dtype=like.dtype, device=like.device)
 
     def _project_solute(self, sx, sv, box):
         sc = self.ts.solute_constraints
         return sc.velocities(sx, sv, box) if sc is not None else sv
 
-    def step(self, st: TiledState, frc: TiledForces):
+    def step(self, st: TiledState, frc: TiledForces, generator=None):
         """One BAOAB (or velocity-Verlet / NHC) step; returns the new state
-        and the forces at its positions."""
+        and the forces at its positions. Langevin noise comes from
+        ``generator`` (default: the engine's)."""
+        gen = self.generator if generator is None else generator
         cfg = self.cfg
         ts = self.ts
         dt = cfg.dt
@@ -443,17 +470,18 @@ class TiledEngine:
             c1 = math.exp(-cfg.gamma * dt)
             sig_w = torch.sqrt((1.0 - c1 * c1) * kT
                                / (self.wmass * units.MVV2E))[None, None, :]
-            wv = c1 * wv + sig_w * vm_atoms * self._randn(wv)
+            wv = c1 * wv + sig_w * vm_atoms * self._randn(wv, gen)
             sig_s = torch.sqrt((1.0 - c1 * c1) * kT
                                / (ts.solute.mass * units.MVV2E))[:, None]
-            sv = c1 * sv + sig_s * ts.solute.smask[:, None] * self._randn(sv)
+            sv = c1 * sv + sig_s * ts.solute.smask[:, None] * self._randn(
+                sv, gen)
             ext_work = ext_work + ke_proj(wv, sv) - ke_o0
         if move_lam and cfg.lambda_thermostat == "langevin":
             kel_o0 = lambda_dyn.lambda_kinetic(v_lam, ts.spec)
             c1l = math.exp(-cfg.lambda_gamma * dt)
             sig_l = torch.sqrt((1.0 - c1l * c1l) * kT
                                / (ts.spec.m_lambda * units.MVV2E))
-            v_lam = c1l * v_lam + sig_l * self._randn(v_lam)
+            v_lam = c1l * v_lam + sig_l * self._randn(v_lam, gen)
             ext_work = (ext_work + lambda_dyn.lambda_kinetic(v_lam, ts.spec)
                         - kel_o0)
 
@@ -594,9 +622,26 @@ class TiledEngine:
 
     # -- run loop ------------------------------------------------------------
 
+    def _deposit(self, st: TiledState, block: int) -> TiledState:
+        """One hill per site at the end of a block that crossed a multiple
+        of the stride (the block started at step_host − block), decided on
+        the host counter so nothing waits for the device. The deposit
+        raises e_site by ΔV(λ) at once; ext_work books it, so h_conserved
+        stays an oracle while hills land."""
+        p = self.metad
+        if (st.step_host - block) % p.stride >= block:
+            return st
+        mv, mdv = metad_mod.deposit(st.metad_v, st.metad_dv, st.lam, p)
+        dV = (metad_mod.lookup(mv, mdv, st.lam, p)[0]
+              - metad_mod.lookup(st.metad_v, st.metad_dv, st.lam, p)[0])
+        return dataclasses.replace(st, metad_v=mv, metad_dv=mdv,
+                                   ext_work=st.ext_work + torch.sum(dV))
+
     def make_run(self, n_steps: int, detailed_flags: bool = False):
         """Run loop: rebin + ``rebuild_every``-step blocks. Returns
-        run(st) → (state, overflow, obs) with obs stacked per step.
+        run(st, generator=None) → (state, overflow, obs) with obs stacked
+        per step; Langevin noise comes from ``generator`` (default: the
+        engine's).
 
         ``overflow`` is the OR of the capacity flag (rebin's early
         slot-full warning) and the dangerous-build drift flag: a water O
@@ -607,7 +652,7 @@ class TiledEngine:
         n_blocks = -(-n_steps // block)
         drift_budget = self.ts.params.skin
 
-        def run(st: TiledState):
+        def run(st: TiledState, generator=None):
             dev = st.wx.device
             ov_cap = torch.zeros((), dtype=torch.bool, device=dev)
             ov_drift = torch.zeros((), dtype=torch.bool, device=dev)
@@ -619,7 +664,7 @@ class TiledEngine:
                                           phi_recip_prev=st.phi_recip_s)
                 wxO0 = st.wx[:, :, 0::3]
                 for _ in range(block):
-                    st, frc = self.step(st, frc)
+                    st, frc = self.step(st, frc, generator)
                     rows.append(self.observe(st, frc))
                 # rows keep their identity within a block (rebinning only
                 # moves rows at block start); parked rows don't move
@@ -628,6 +673,8 @@ class TiledEngine:
                 # keep the k-space MTS carry in the state, so the next run
                 # call keeps the stale-φ λ coupling
                 st = dataclasses.replace(st, phi_recip_s=frc.phi_recip_s)
+                if self.metad is not None and not self.metad_frozen:
+                    st = self._deposit(st, block)
             obs = Observables.stack(rows)
             if detailed_flags:
                 return st, (ov_cap, ov_drift), obs

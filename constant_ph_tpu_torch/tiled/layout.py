@@ -68,6 +68,11 @@ class TiledState:
     # between kspace_every boundaries use the stale φ (zeros before the
     # first evaluation and without k-space)
     phi_recip_s: torch.Tensor
+    # (S, nbins) metadynamics λ-bias tables, V and dV/dλ on the λ grid
+    # (metad.py); (0, 0) when metadynamics is off. Part of the dynamic
+    # state because the bias is history-dependent
+    metad_v: torch.Tensor
+    metad_dv: torch.Tensor
     # host copy of `step`, advanced with it: the MTS boundary test
     # (step % kspace_every == 0) reads it, so choosing whether to run PME
     # never waits for the device
@@ -407,6 +412,8 @@ def to_tiled(ts: TiledSystem, state: SystemState) -> TiledState:
         nhc_lam_xi=state.nhc_lam_xi.to(dev),
         ext_work=state.ext_work.to(dev),
         phi_recip_s=torch.zeros((Ns,), dtype=dtype, device=dev),
+        metad_v=torch.zeros((0, 0), dtype=dtype, device=dev),
+        metad_dv=torch.zeros((0, 0), dtype=dtype, device=dev),
         step_host=int(state.step),
     )
 
@@ -448,9 +455,12 @@ def retile(ts: TiledSystem, tstate: TiledState, W: int):
     state = to_canonical(ts, tstate)
     ts2 = copy.copy(ts)
     ts2.params = dataclasses.replace(ts.params, W=W)
-    # the k-space MTS carry is per solute atom, independent of the tiles
-    return ts2, dataclasses.replace(to_tiled(ts2, state),
-                                    phi_recip_s=tstate.phi_recip_s)
+    # the k-space MTS carry (per solute atom) and the metadynamics tables
+    # are independent of the tiles
+    return ts2, dataclasses.replace(
+        to_tiled(ts2, state), phi_recip_s=tstate.phi_recip_s,
+        metad_v=tstate.metad_v, metad_dv=tstate.metad_dv,
+        step_host=tstate.step_host)
 
 
 # ---------------------------------------------------------------------------
