@@ -14,10 +14,15 @@ available or the port's package is not beside it.
    and both on the hard tile set of tiled/hard_tiles.py (stretched
    molecules, every box face straddled, pairs at rc ± 0.005 Å, a full and
    a parked cell; K2's tiles packed with their own validity) in DSF α
-   0.2, 'cut' α 0.30 and unscreened 'cut'. Every check of either kernel
-   launches it twice and requires bitwise-equal outputs; every K2 check
-   also requires that K2 evaluated at least twice the atom pairs inside
-   rc (each is computed from both of its atoms).
+   0.2, 'cut' α 0.30 and unscreened 'cut', at their W 24 and padded with
+   parked slots to W 208 and 252 (W_MAX): there each kernel stages its
+   stencil in passes (K1 3, K2 9), and the live slots' outputs must equal
+   the W 24 ones. Every check of either kernel launches it twice and
+   requires bitwise-equal outputs; where a check forces other pass counts
+   (the hard tiles, the PME and campaign production tiles, W 208), they
+   must give bitwise the same outputs; every K2 check also requires that
+   K2 evaluated at least twice the atom pairs inside rc (each is computed
+   from both of its atoms). Past W_MAX both wrappers must refuse.
 2. DSF path (the ``entry()`` configuration): solvated_acid (n_side=20,
    DSF rc=8 Å, α=0.2, HMR 3, pH 5) → split_system(skin=0.8,
    tile_safety=1.72) → 400 FIRE steps → 800 Langevin equilibration steps
@@ -33,8 +38,9 @@ available or the port's package is not beside it.
    TiledEngine(use_pallas_ww=True) (K2 on every force evaluation), the
    compute_Hs sum rule, K2 against K1 through compute_forces, and the
    float64 breakdown of their force difference (each kernel against its
-   plain version run in float64, and the two float64 plain versions
-   against each other).
+   plain version run in float64, the two float64 plain versions against
+   each other, and the atom pairs whose in-cutoff test differs between
+   float32 and float64 with the force they carry).
 5. Campaign phase: the λ-metadynamics titration campaign of
    examples/titration_metad_multisite.py at its full width
    (solvated_polypeptide, 27,300 atoms, 20 sites, 8 buffer waters a site,
@@ -54,12 +60,29 @@ available or the port's package is not beside it.
    walker-step, K1 on the campaign tiles (time, bound, pairs), the
    water×solute and solute×solute blocks at Ns 600 (time, memory), and
    one campaign block under torch.profiler.
+6. NPT phase on the PME production state: tiled.npt.npt_elastic_run at 1
+   atm with the live-box PME, 4 chunks of 48 steps with an MC volume move
+   after each, and make_pressure_fn once. Gates: K1 launches equal force
+   evaluations (2 a move), the box within the ±4 % drift guard, a move's
+   result is the state the next chunk starts from (redone bit for bit),
+   rigid water kept through a move, a finite pressure, no host sync in a
+   chunk, and the baked-box engine refused.
+7. hewl phase: configs/hewl_like.json (solvated_polypeptide, 20,241
+   atoms, 16 sites, grid 4³, W 208) as the JAX CLI's tiled run drives it:
+   400 FIRE steps at W 208 (K1 in passes), 800 relaxation steps, then
+   tiled.elastic.elastic_run at W 208 in 4 chunks of 120 steps (the
+   config's 5,000 steps in chunks of 2,000, cut in depth) with a DCD
+   frame a chunk, JSONL observables, a checkpoint (state and generator)
+   after chunk 2 and chunks 3-4 run twice, in memory and from the file:
+   bitwise equal. Gates as on the other paths; K1 and K2 timed at W 208
+   and K1 at the occupancy + 6 retile (one pass).
 
 Every path zeroes the kernels' launch counters just before it runs and
 reads them just after; each kernel of a path must have launched once per
 force evaluation. The kernels are timed (device time, from a CUDA graph
 of 50 calls) against their plain versions and their bounds at the PME
-production tiles, and again with those tiles retiled to W 56 (A 168).
+production tiles, again with those tiles retiled to W 56 (A 168), on
+the campaign tiles and on the hewl tiles.
 Each kernel's bound counts the atom pairs those tiles need
 (tiled.forces.water_pairs_in_cutoff for K1,
 water_pairs_in_cutoff_tally for K2); the whole-stencil figure is printed
@@ -205,63 +228,27 @@ def e_close(got, ref):
     return abs(got - ref) <= TOL_E_ABS + TOL_E_REL * abs(ref)
 
 
-def graph_ms(fn, n):
-    """Device time of one call of fn: n calls captured in one CUDA graph
-    and the graph replayed between two events, so the host's time to
-    launch each call (the Python wrapper) is not counted."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n
-
-
-def cuda_ms(fn, n):
-    import torch
-
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n
-
-
-def check_ww(ts, st, label, timing=True):
+def check_ww(ts, st, label, timing=True, forced=()):
     """K1 against its plain version on a TiledSystem's tiles."""
     p = ts.params
     return check_ww_tiles(st.wx.reshape((3,) + p.grid + (3 * p.W,)),
                           ts.water, p, st.box, label, style=ts.coul_style,
-                          alpha=ts.alpha, rc=ts.cutoff, timing=timing)
+                          alpha=ts.alpha, rc=ts.cutoff, timing=timing,
+                          forced=forced)
 
 
 def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
-                   timing=False):
+                   timing=False, forced=()):
     """K1 against its plain version on one tile set: energies and forces
-    within the bars, and two launches bitwise equal. With ``timing``, the
-    kernel's and the plain version's times, the pairs these tiles need and
-    the bounds. Returns the numbers."""
+    within the bars, and two launches bitwise equal. For each pass count
+    in ``forced``, the kernel with its stencil staged in that many passes
+    gives bitwise the outputs of the pass count it takes on its own. With
+    ``timing``, the kernel's time (also in each forced pass count) and
+    the plain version's, the pairs these tiles need and the bounds.
+    Returns the numbers."""
     import torch
 
+    from constant_ph_tpu_torch.profiling import cuda_ms, graph_ms
     from constant_ph_tpu_torch.tiled import cuda_ww, forces
 
     kw = dict(style=style, alpha=alpha, rc=rc)
@@ -274,6 +261,7 @@ def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
 
     got = kernel()
     evaluated = int(cuda_ww.water_water_cuda.pairs_evaluated)
+    passes = cuda_ww.water_water_cuda.passes
     again = kernel()
     ref = plain()
     torch.cuda.synchronize()
@@ -284,6 +272,11 @@ def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
         raise RuntimeError(f"{label}: force shape {tuple(got[2].shape)}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise RuntimeError(f"{label}: two launches of K1 differ")
+    for n in forced:
+        alt = cuda_ww.water_water_cuda(wxg, wm, p, box, passes=n, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, alt)):
+            raise RuntimeError(f"{label}: K1 in {n} passes differs from K1 "
+                               f"in {passes}")
     e_rel = max(abs(float(got[i]) - float(ref[i]))
                 / max(abs(float(ref[i])), 1e-30) for i in (0, 1))
     e_ok = all(e_close(float(got[i]), float(ref[i])) for i in (0, 1))
@@ -294,10 +287,15 @@ def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
                e_lj=float(got[0]), e_lj_plain=float(ref[0]),
                e_coul=float(got[1]), e_coul_plain=float(ref[1]),
                e_rel_err=e_rel, f_abs_err=f_abs, f_scaled_err=f_abs / scale,
-               bitwise_repeat=True, pairs_evaluated=evaluated)
+               bitwise_repeat=True, pairs_evaluated=evaluated, passes=passes,
+               bitwise_passes=list(forced))
     if timing:
         needed = int(forces.water_pairs_in_cutoff(wxg, p, box, rc))
         res["ms"] = graph_ms(kernel, 50)
+        # the same tiles in each forced pass count
+        res["ms_passes"] = {n: graph_ms(
+            lambda n=n: cuda_ww.water_water_cuda(wxg, wm, p, box, passes=n,
+                                                 **kw), 50) for n in forced}
         res["plain_ms"] = cuda_ms(plain, 5)
         res["pairs_needed"] = needed
         res["bound_ms"], res["bound_by"] = ww_bound_ms(G, A, needed)
@@ -310,7 +308,7 @@ def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
     return res
 
 
-def check_tally(ts, st, label, timing=True):
+def check_tally(ts, st, label, timing=True, forced=()):
     """K2 against its plain version on a TiledSystem's tiles."""
     from constant_ph_tpu_torch.tiled import forces
 
@@ -321,19 +319,22 @@ def check_tally(ts, st, label, timing=True):
                                  ts.water, p)
     return check_tally_tiles(wt, st.box, ts.water, p, label,
                              style=ts.coul_style, alpha=ts.alpha,
-                             rc=ts.cutoff, timing=timing)
+                             rc=ts.cutoff, timing=timing, forced=forced)
 
 
 def check_tally_tiles(wt, box, wm, p, label, *, style, alpha, rc,
-                      timing=False):
+                      timing=False, forced=()):
     """K2 against its plain version on one set of packed tiles: energies
     (sums of the eatom rows) within the bars, forces, eatom and φ within
     TOL_F_SCALED of their max, zero padding rows, two launches bitwise
-    equal, and at least twice the atom pairs inside rc evaluated. With
-    ``timing``, the kernel's and the plain version's times and the
+    equal, at least twice the atom pairs inside rc evaluated, and for
+    each pass count in ``forced`` bitwise the outputs of the pass count
+    the kernel takes on its own. With ``timing``, the kernel's time
+    (also in each forced pass count) and the plain version's, and the
     bounds. Returns the numbers."""
     import torch
 
+    from constant_ph_tpu_torch.profiling import cuda_ms, graph_ms
     from constant_ph_tpu_torch.tiled import cuda_ww, forces
 
     kw = dict(style=style, alpha=alpha, rc=rc)
@@ -346,6 +347,7 @@ def check_tally_tiles(wt, box, wm, p, label, *, style, alpha, rc,
 
     got = kernel()
     evaluated = int(cuda_ww.water_water_tally_cuda.pairs_evaluated)
+    passes = cuda_ww.water_water_tally_cuda.passes
     again = kernel()
     ref = plain()
     needed = int(forces.water_pairs_in_cutoff_tally(wt, box, p, rc))
@@ -356,6 +358,11 @@ def check_tally_tiles(wt, box, wm, p, label, *, style, alpha, rc,
         raise RuntimeError(f"{label}: bad full-tally output layout")
     if not torch.equal(got, again):
         raise RuntimeError(f"{label}: two launches of K2 differ")
+    for n in forced:
+        alt = cuda_ww.water_water_tally_cuda(wt, box, wm, p, passes=n, **kw)
+        if not torch.equal(got, alt):
+            raise RuntimeError(f"{label}: K2 in {n} passes differs from K2 "
+                               f"in {passes}")
     e = [float(torch.sum(got[..., r, :])) for r in (3, 4)]
     e_ref = [float(torch.sum(ref[..., r, :])) for r in (3, 4)]
     e_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(e, e_ref))
@@ -372,9 +379,15 @@ def check_tally_tiles(wt, box, wm, p, label, *, style, alpha, rc,
                f_abs_err=errs["f"][0], f_scaled_err=errs["f"][1],
                phi_abs_err=errs["phi"][0], phi_scaled_err=errs["phi"][1],
                eatom_scaled_err=errs["eatom"][1], bitwise_repeat=True,
-               pairs_needed=needed, pairs_evaluated=evaluated)
+               pairs_needed=needed, pairs_evaluated=evaluated, passes=passes,
+               bitwise_passes=list(forced))
     if timing:
         res["ms"] = graph_ms(kernel, 50)
+        # the same tiles in each forced pass count
+        res["ms_passes"] = {n: graph_ms(
+            lambda n=n: cuda_ww.water_water_tally_cuda(wt, box, wm, p,
+                                                       passes=n, **kw), 50)
+            for n in forced}
         res["plain_ms"] = cuda_ms(plain, 5)
         res["bound_ms"], res["bound_by"] = tally_bound_ms(G, A, style,
                                                           needed)
@@ -393,15 +406,20 @@ def check_tally_tiles(wt, box, wm, p, label, *, style, alpha, rc,
 
 def kernel_phase(dev):
     """Build the kernels, then check each on a small dilute box (both
-    Coulomb styles) and on the hard tile set (tiled/hard_tiles.py)."""
+    Coulomb styles) and on the hard tile set (tiled/hard_tiles.py): at
+    its W 24 (one pass, and forced to 3, 9 and 27 passes: bitwise the
+    same), padded with parked slots to W 208 (passes: K1 3, K2 9; forced
+    to other counts: bitwise the same; the live slots' outputs equal those
+    at W 24 within float32 rounding, the parked slots' are zeros) and to
+    W_MAX 252; past W_MAX each wrapper refuses, naming the limit."""
     import torch
 
     from constant_ph_tpu_torch.systems.water import solvated_acid
     from constant_ph_tpu_torch.tiled import cuda_ww, forces
     from constant_ph_tpu_torch.tiled.hard_tiles import (
-        COULOMB, hard_water_tiles)
+        COULOMB, hard_water_tiles, pad_tiles)
     from constant_ph_tpu_torch.tiled.layout import (
-        TileParams, WaterModel, split_system, to_tiled)
+        W_MAX, TileParams, WaterModel, split_system, to_tiled)
 
     t0 = time.perf_counter()
     built = cuda_ww.build()
@@ -419,50 +437,88 @@ def kernel_phase(dev):
         st = to_tiled(ts, sys_.state)
         check_ww(ts, st, f"dilute-{style}", timing=False)
         check_tally(ts, st, f"dilute-{style}", timing=False)
+
+    def tiles(h):
+        p = TileParams(**h["params"])
+        wxg = torch.as_tensor(h["wx"], device=dev).reshape(
+            (3,) + p.grid + (3 * p.W,))
+        wm = WaterModel(**h["water"])
+        # K2's tiles carry the hard tiles' own validity (0 on parked slots)
+        wt = forces.pack_water_tiles(
+            wxg, torch.as_tensor(h["wvalid"], device=dev).reshape(
+                p.grid + (p.W,)), wm, p)
+        return p, wxg, wm, wt, torch.as_tensor(h["box"], device=dev)
+
     hard = hard_water_tiles()
-    p = TileParams(**hard["params"])
-    wxg = torch.as_tensor(hard["wx"], device=dev).reshape(
-        (3,) + p.grid + (3 * p.W,))
-    box = torch.as_tensor(hard["box"], device=dev)
-    wm = WaterModel(**hard["water"])
-    # K2's tiles carry the hard tiles' own validity (0 on parked slots)
-    wt = forces.pack_water_tiles(
-        wxg, torch.as_tensor(hard["wvalid"], device=dev).reshape(
-            p.grid + (p.W,)), wm, p)
+    p, wxg, wm, wt, box = tiles(hard)
+    base = {}
     for style, alpha in COULOMB:
         label = f"hard-{style}-{alpha}"
-        check_ww_tiles(wxg, wm, p, box, label, style=style, alpha=alpha,
-                       rc=p.cutoff)
-        check_tally_tiles(wt, box, wm, p, label, style=style, alpha=alpha,
-                          rc=p.cutoff)
+        kw = dict(style=style, alpha=alpha, rc=p.cutoff)
+        check_ww_tiles(wxg, wm, p, box, label, forced=(3, 9, 27), **kw)
+        check_tally_tiles(wt, box, wm, p, label, forced=(3, 9, 27), **kw)
+        base[style, alpha] = (
+            cuda_ww.water_water_cuda(wxg, wm, p, box, **kw),
+            cuda_ww.water_water_tally_cuda(wt, box, wm, p, **kw))
+    # the same molecules at W 208 and W_MAX: K1's and K2's live slots as
+    # at W 24 within float32 rounding (sums of other lengths), parked
+    # slots zero
+    for W in (208, W_MAX):
+        pw, wxw, _, wtw, _ = tiles(pad_tiles(hard, W))
+        live = torch.zeros(pw.grid + (3 * W,), dtype=torch.bool, device=dev)
+        live[..., :3 * p.W] = True
+        for style, alpha in COULOMB if W == 208 else COULOMB[1:2]:
+            label = f"hard-W{W}-{style}-{alpha}"
+            kw = dict(style=style, alpha=alpha, rc=p.cutoff)
+            r1 = check_ww_tiles(wxw, wm, pw, box, label, **kw,
+                                forced=(9,) if W == 208 else ())
+            r2 = check_tally_tiles(wtw, box, wm, pw, label, **kw,
+                                   forced=(3,) if W == 208 else ())
+            if (r1["passes"], r2["passes"]) != (3, 9):
+                raise RuntimeError(f"{label}: passes {r1['passes']}, "
+                                   f"{r2['passes']} (want K1 3, K2 9)")
+            f1 = cuda_ww.water_water_cuda(wxw, wm, pw, box, **kw)[2]
+            o2 = cuda_ww.water_water_tally_cuda(wtw, box, wm, pw, **kw)
+            b1, b2 = base[style, alpha]
+            d1 = float(torch.abs(f1[:, live].reshape(3, -1)
+                                 - b1[2].reshape(3, -1)).max())
+            d2 = float(torch.abs(o2.movedim(-2, 0)[:, live]
+                                 - b2.movedim(-2, 0).reshape(8, -1)).max())
+            s1 = max(1.0, float(torch.abs(b1[2]).max()))
+            s2 = max(1.0, float(torch.abs(b2).max()))
+            log(f"[kernel] {label} vs W {p.W}: K1 f {d1 / s1:.3g}, K2 "
+                f"{d2 / s2:.3g} of max; parked slots zero")
+            if (d1 / s1 > 1e-6 or d2 / s2 > 1e-6 or f1[:, ~live].any()
+                    or o2.movedim(-2, 0)[:, ~live].any()):
+                raise RuntimeError(f"{label}: padded tiles differ from "
+                                   f"the W {p.W} tiles")
+    # past W_MAX: a refusal that names the limit
+    pw, wxw, _, wtw, _ = tiles(pad_tiles(hard, W_MAX + 4))
+    for fn in (lambda: cuda_ww.water_water_cuda(wxw, wm, pw, box, **kw),
+               lambda: cuda_ww.water_water_tally_cuda(wtw, box, wm, pw,
+                                                      **kw)):
+        try:
+            fn()
+        except ValueError as err:
+            if str(W_MAX) not in str(err):
+                raise
+        else:
+            raise RuntimeError(f"a kernel took W {W_MAX + 4}")
+    log(f"[kernel] W {W_MAX + 4} refused by both wrappers")
 
 
 def profile_block(run_block, st, ms_step, block, label="profile"):
-    """torch.profiler over one production block: device busy time by
-    kernel, kernel launches per step, and the device's idle share against
-    the unprofiled step time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over one production block (profiling.profile_block):
+    device busy time by kernel, kernel launches per step, and the device's
+    idle share against the unprofiled step time."""
+    from constant_ph_tpu_torch.profiling import profile_block as prof
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        st, _, _ = run_block(st)
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    # device-side rows (kernels, copies); where the profiler lists none,
-    # each CPU op's self device time counts its own kernels once
-    rows = [(e.self_device_time_total, e.count, e.key) for e in ka
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not rows:
-        rows = [(e.self_device_time_total, e.count, e.key) for e in ka
-                if e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3 / block
-    log(f"[{label}] device busy {busy_ms:.3f} ms/step of {ms_step:.3f}: "
-        f"idle share {1.0 - busy_ms / ms_step:.4f}; "
-        f"{sum(r[1] for r in rows) / block:.0f} device ops/step")
+    st, bp = prof(run_block, st, block)
+    log(f"[{label}] device busy {bp.busy_ms_per_step:.3f} ms/step of "
+        f"{ms_step:.3f}: idle share {1.0 - bp.busy_ms_per_step / ms_step:.4f}"
+        f"; {bp.ops_per_step:.0f} device ops/step")
     # the top rows, and the port's own kernels wherever they rank
-    for i, (us, n, key) in enumerate(rows):
+    for i, (us, n, key) in enumerate(bp.rows):
         if i < 12 or any(k in key for k in ("ww_pair", "ww_tally",
                                             "energy_sum")):
             log(f"[{label}] {us / 1e3 / block:9.4f} ms/step "
@@ -610,6 +666,7 @@ def check_pme_on_cpu(ts, st, pme):
     import torch
 
     from constant_ph_tpu_torch.ops.pme import make_pme_params, pme_recip_tiled
+    from constant_ph_tpu_torch.profiling import cuda_ms
 
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
@@ -732,6 +789,17 @@ def tally_path(ts, st, pme, cfg, n_blocks=4):
     f64 = {name: float(torch.abs(a - b).max()) / scale for name, a, b in (
         ("k2_vs_plain64", k2, k2_64), ("k1_vs_plain64", k1, k1_64),
         ("plain64_k2_vs_k1", k2_64, k1_64), ("k2_vs_k1", k2, k1))}
+    # the pairs whose in-cutoff test differs between float32 and float64
+    # r² ('cut' Coulomb steps at rc), the force they carry, and what is
+    # left of each kernel's distance from its float64 plain version once
+    # that force is taken off (it carries the sign of the float32 choice)
+    n_flip, f_flip = cutoff_flips(wxg, p, st.box, ts.water, **kw)
+    f64["cutoff_flip_pairs"] = n_flip
+    f64["cutoff_flip_force"] = float(torch.abs(f_flip).max()) / scale
+    f64["k1_vs_plain64_less_flips"] = float(
+        torch.abs(k1 - k1_64 - f_flip).max()) / scale
+    f64["k2_vs_plain64_less_flips"] = float(
+        torch.abs(k2 - k2_64 - f_flip).max()) / scale
     hs["ww_f_scaled"] = f64
     log(f"[tally float64] water-water forces / max|f| {json.dumps(f64)}")
     if hs["rel_err"] > 1e-3:
@@ -802,6 +870,7 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
     from constant_ph_tpu_torch.engine import EngineConfig
     from constant_ph_tpu_torch.lambda_dyn import BiasParams
     from constant_ph_tpu_torch.parallel import replica
+    from constant_ph_tpu_torch.profiling import cuda_ms
     from constant_ph_tpu_torch.systems.protein import solvated_polypeptide
     from constant_ph_tpu_torch.tiled import forces
     from constant_ph_tpu_torch.tiled.engine import TiledEngine
@@ -1081,7 +1150,7 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
     walker = replica.unstack_replicas(batch)[0]
     res = dict(prod=prod, counts=counts, gates=gates)
     if dev == "cuda":
-        res["k1"] = check_ww(ts, walker, "campaign-tiles")
+        res["k1"] = check_ww(ts, walker, "campaign-tiles", forced=(3,))
         p = ts.params
         kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
         wxg = walker.wx.reshape((3,) + p.grid + (3 * p.W,))
@@ -1112,6 +1181,380 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
     return res
 
 
+# configs/hewl_like.json as the JAX CLI's tiled `run` drives it
+# (constant_ph_tpu/cli.py:140-290): its build, the JAX builder's figures
+# for it, and the cut depth (chunks of 120 steps, not 2,000)
+HEWL_CONFIG = "configs/hewl_like.json"
+HEWL_SHAPE = dict(atoms=20241, sites=16, grid=[4, 4, 4], W=208)
+HEWL_CHUNK = 120
+HEWL_CHUNKS = 4
+# the relaxation the DSF and PME paths use, inserted between FIRE and
+# production: from FIRE's zero velocities the config's γ 0.002 /fs warms
+# the box over ~500 fs, so production would start far below 250 K
+HEWL_EQ = dict(dt=0.5, thermostat="langevin", T=300.0, gamma=0.01,
+               lambda_thermostat="langevin", force_cap=50.0, seed=61)
+HEWL_N_EQ = 800
+
+
+def _first_difference(a, b):
+    """The name of the first tensor field in which two sequences of
+    dataclasses (tiled states, Observables) differ, or None when they are
+    equal bit for bit."""
+    import dataclasses
+
+    import torch
+
+    for x, y in zip(a, b):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, torch.Tensor) and not torch.equal(u, v):
+                return f.name
+    return None
+
+
+def hewl_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, n_min=None,
+              n_eq=HEWL_N_EQ, chunk=HEWL_CHUNK):
+    """configs/hewl_like.json through the port's run control, as the JAX
+    CLI's tiled run drives it: build, split at the defaults, FIRE at the
+    built W 208 (K1 in passes), a Langevin relaxation, then elastic_run at
+    the built W in chunks of ``chunk`` steps: a DCD frame a chunk
+    (to_canonical), the observables as JSONL, a checkpoint (state and
+    generator) after chunk 2, and chunks 3-4 twice: (a) continued in
+    memory through to_canonical → to_tiled, (b) from the checkpoint file.
+    Gates: (b) equals (a) bit for bit; the DCD reads back; no molecule
+    lost; T in 250–350 K after the first chunk; finite h_conserved; K1
+    launches = force evaluations; no host sync inside a chunk. Then K1 and
+    K2 on the production tiles at W 208 (passes) and K1 at occupancy + 6
+    (one pass). Smaller ``shape`` / depths only serve a rehearsal on the
+    CPU. Returns the numbers."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from constant_ph_tpu_torch import checkpoint, observables
+    from constant_ph_tpu_torch.engine import EngineConfig
+    from constant_ph_tpu_torch.lambda_dyn import BiasParams
+    from constant_ph_tpu_torch.systems.protein import solvated_polypeptide
+    from constant_ph_tpu_torch.tiled.elastic import (
+        concat_observables, elastic_run)
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+    from constant_ph_tpu_torch.tiled.layout import (
+        retile_auto, split_system, to_canonical, to_tiled)
+    from constant_ph_tpu_torch.trajectory import DCDWriter, read_dcd
+
+    t_phase = t0 = time.perf_counter()
+    with open(config) as fh:
+        conf = json.load(fh)
+    build = dict(conf["system"])
+    if build.pop("builder") != "solvated_polypeptide":
+        raise RuntimeError(f"{config}: not a solvated_polypeptide config")
+    sys_ = solvated_polypeptide(device=dev, **build)
+    ecfg = EngineConfig(**conf["engine"])
+    bias = BiasParams()
+    ts = split_system(sys_, device=dev)
+    st = to_tiled(ts, sys_.state)
+    n_atoms = int(sys_.state.x.shape[0])
+    got = dict(atoms=n_atoms, sites=ts.spec.n_sites,
+               grid=list(ts.params.grid), W=ts.params.W)
+    log(f"[hewl build] {json.dumps(got)} (occupancy "
+        f"{int(st.wvalid.sum(dim=1).max())}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if shape is not None and got != shape:
+        raise RuntimeError(f"hewl build {got}, expected {shape}")
+    n_min = conf["run"]["minimize_steps"] if n_min is None else n_min
+    every = conf["run"]["observe_every"]
+    blk = ecfg.rebuild_every
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    tmp = tempfile.TemporaryDirectory()
+    dcd_path = os.path.join(tmp.name, "hewl.dcd")
+    ckpt_path = os.path.join(tmp.name, "hewl_ckpt.npz")
+    dcd = DCDWriter(dcd_path, n_atoms, dt_fs=ecfg.dt)
+
+    def on_chunk(done, ts_c, tst_c, obs_c):
+        dcd.write_frame(to_canonical(ts_c, tst_c).x, tst_c.box)
+
+    # -- the path: counts zeroed just before, read just after --------------
+    zero_counts()
+    eng = TiledEngine(ts, ecfg, bias=bias)
+    t0 = time.perf_counter()
+    st, e_hist = eng.make_minimize(n_min)(st)
+    cfg_eq = EngineConfig(rebuild_every=blk, **HEWL_EQ)
+    st, ov_eq, obs_eq = TiledEngine(ts, cfg_eq, bias=bias).make_run(n_eq)(st)
+    sync()
+    evals = -(-n_min // blk) * blk + -(-n_eq // blk) * (blk + 1)
+    log(f"[hewl relax] {n_min} FIRE steps at W {ts.params.W}: E "
+        f"{float(e_hist[0]):.1f} -> {float(e_hist[-1]):.1f} kcal/mol; "
+        f"{n_eq} Langevin steps (dt 0.5, γ 0.01): T "
+        f"{float(obs_eq.temp[-1]):.1f} K, overflow {bool(ov_eq)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=st.wx.device).manual_seed(ecfg.seed)
+    kw = dict(chunk=chunk, bias=bias, check_sync=dev == "cuda")
+    n_chunk = -(-chunk // blk) * (blk + 1)      # force evaluations a chunk
+    sync()
+    t0 = time.perf_counter()
+    ts1, st1, obs1, info1 = elastic_run(ts, st, ecfg, 2 * chunk,
+                                        on_chunk=on_chunk, generator=gen,
+                                        **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    # the checkpoint after chunk 2, then chunks 3-4 twice
+    canon = to_canonical(ts1, st1)
+    checkpoint.save(ckpt_path, canon, generator=gen)
+    gen_a = torch.Generator(device=st.wx.device)
+    gen_a.set_state(gen.get_state())
+    t0 = time.perf_counter()
+    ts_a, st_a, obs_a, info_a = elastic_run(
+        ts1, to_tiled(ts1, canon), ecfg, 2 * chunk, on_chunk=on_chunk,
+        generator=gen_a, **kw)
+    sync()
+    wall += time.perf_counter() - t0
+    gen_b = torch.Generator(device=st.wx.device)
+    loaded = checkpoint.load(ckpt_path, device=dev, generator=gen_b)
+    ts_b, st_b, obs_b, info_b = elastic_run(
+        ts1, to_tiled(ts1, loaded), ecfg, 2 * chunk, generator=gen_b, **kw)
+    sync()
+    evals += 6 * n_chunk
+    counts = read_counts()
+    # -------------------------------------------------------------------
+    dcd.close()
+
+    differs = _first_difference((st_a, obs_a), (st_b, obs_b))
+    frames, boxes = read_dcd(dcd_path)
+    final = to_canonical(ts_a, st_a)
+    obs = concat_observables([obs1, obs_a])
+    jsonl = os.path.join(tmp.name, "hewl_obs.jsonl")
+    with open(jsonl, "w") as fh:
+        observables.write_jsonl(obs, fh, every=every)
+    with open(jsonl) as fh:
+        n_rows = sum(1 for _ in fh)
+    temp = obs.temp[chunk:]                      # after the first chunk
+    n_steps = 4 * chunk
+    res = dict(
+        ms_per_step=wall / n_steps * 1e3, steps=n_steps,
+        T_mean=float(temp.mean()), T_min=float(temp.min()),
+        T_max=float(temp.max()),
+        h_conserved_finite=bool(torch.isfinite(obs.h_conserved).all()),
+        waters=int(st_a.wvalid.sum()), n_waters=len(ts.water_atom_ids),
+        retiles=[info1.n_retiles, info_a.n_retiles, info_b.n_retiles],
+        dangerous_blocks=info1.n_dangerous_blocks + info_a.n_dangerous_blocks,
+        final_W=info_a.final_W, resume_bitwise=differs is None,
+        dcd_frames=int(frames.shape[0]), jsonl_rows=n_rows,
+        dcd_last_frame_equal=bool(
+            (frames[-1] == final.x.float().cpu().numpy()).all()))
+    log(f"[hewl production] {json.dumps(res)}")
+    log(f"[hewl launches] {json.dumps(counts)}, force evaluations {evals}")
+    if counts != {"ww_pair": evals, "ww_tally": 0}:
+        raise RuntimeError("the hewl path did not run every force "
+                           "evaluation through the CUDA kernel K1")
+    if differs is not None:
+        raise RuntimeError(f"resume from the checkpoint file differs from "
+                           f"the in-memory continuation in {differs}")
+    if (res["dcd_frames"] != HEWL_CHUNKS or not res["dcd_last_frame_equal"]
+            or n_rows != -(-n_steps // every)):
+        raise RuntimeError(f"hewl outputs wrong ({res})")
+    if res["waters"] != res["n_waters"] or not res["h_conserved_finite"]:
+        raise RuntimeError(f"hewl production lost molecules or went "
+                           f"non-finite ({res})")
+    if not 250.0 < res["T_mean"] < 350.0:
+        raise RuntimeError(f"hewl production temperature {res['T_mean']} K")
+
+    # the kernels on the production tiles: W 208 (passes) and K1 at the
+    # occupancy + 6 retile (one pass)
+    out = dict(res=res, counts=counts)
+    if dev == "cuda":
+        out["k1"] = check_ww(ts_a, st_a, "hewl-production-tiles",
+                             forced=(9,))
+        out["k2"] = check_tally(ts_a, st_a, "hewl-production-tiles",
+                                forced=(3,))
+        occ = int(st_a.wvalid.sum(dim=1).max())
+        ts_o, st_o = retile_auto(ts_a, st_a, occ)
+        out["k1_occ"] = check_ww(ts_o, st_o,
+                                 f"hewl-production-state-W{ts_o.params.W}")
+    tmp.cleanup()
+    log(f"[hewl] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _bond_lengths(ts, st):
+    """O-H and H-H distances of every valid tile water (molecules are
+    whole in the tiles), float64 on the host."""
+    import numpy as np
+
+    W = ts.params.W
+    xm = st.wx.double().cpu().numpy().reshape(3, -1, W, 3)
+    v = st.wvalid.cpu().numpy() > 0.5
+
+    def d(a, b):
+        return np.sqrt(((xm[..., a] - xm[..., b]) ** 2).sum(0))[v]
+
+    return np.concatenate([d(0, 1), d(0, 2)]), d(1, 2)
+
+
+def npt_path(ts, st, pme, cfg, n_chunks=4, chunk=48, pressure_atm=1.0,
+             seed=71):
+    """NPT on the PME main path's production state: npt_elastic_run at
+    ``pressure_atm`` with the live-box PME (one MC move after each of
+    ``n_chunks`` chunks) and make_pressure_fn once. Counts zeroed just
+    before, read just after (two force evaluations a move and a pressure).
+    Gates: the box within the ±4 % drift guard; a move's result (an
+    accepted one where there is one) is the state the next chunk starts
+    from; rigid water geometry kept through a move; a finite pressure; no
+    host sync inside a chunk; _check_npt_kspace refuses the same engine
+    without kspace_live_box. Returns the numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+    from constant_ph_tpu_torch.tiled.npt import (
+        make_mc_barostat, make_pressure_fn, npt_elastic_run)
+
+    t_phase = time.perf_counter()
+    cfg_n = dataclasses.replace(cfg, kspace_live_box=True, seed=72)
+    ends = []
+
+    def on_chunk(done, ts_c, tst_c, obs_c):
+        ends.append((ts_c, tst_c, gen.get_state()))
+
+    gen = torch.Generator(device=st.wx.device).manual_seed(cfg_n.seed)
+    box0 = st.box.double().cpu().numpy()
+    # -- the path: counts zeroed just before, read just after --------------
+    zero_counts()
+    pressure = make_pressure_fn(TiledEngine(ts, cfg_n, kspace_ep=pme),
+                                T=cfg_n.T)(st)
+    t0 = time.perf_counter()
+    ts_n, st_n, obs, info, stats = npt_elastic_run(
+        ts, st, cfg_n, n_chunks * chunk, pressure_atm=pressure_atm,
+        chunk=chunk, kspace_ep=pme, seed=seed, on_chunk=on_chunk,
+        generator=gen, check_sync=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    # -------------------------------------------------------------------
+    blk = cfg_n.rebuild_every
+    evals = 2 + n_chunks * (-(-chunk // blk) * (blk + 1) + 2)
+    box = st_n.box.double().cpu().numpy()
+    res = dict(pressure_atm=float(pressure), accepted=stats["accepted"],
+               proposed=stats["proposed"], volume=stats["volume"],
+               volume0=float(np.prod(box0)),
+               box_drift=float(np.abs(box / box0 - 1.0).max()),
+               ms_per_step=wall / (n_chunks * chunk) * 1e3,
+               T_mean=float(obs.temp.mean()),
+               h_conserved_finite=bool(torch.isfinite(obs.h_conserved).all()),
+               retiles=info.n_retiles)
+    # a move's result is the next chunk's start: redo the moves (their
+    # uniforms from a generator seeded as the run's) and the chunk after
+    # one (an accepted one where there is one) from its result, with the
+    # run generator's state at that chunk's start
+    mc = torch.Generator(device=st.wx.device).manual_seed(seed)
+    moves = []
+    for ts_k, st_k, _ in ends[:-1]:
+        move = make_mc_barostat(TiledEngine(ts_k, cfg_n, kspace_ep=pme),
+                                pressure_atm=pressure_atm, T=cfg_n.T)
+        moves.append(move(st_k, mc))
+    flags = [bool(a) for _, a in moves]
+    k = flags.index(True) if True in flags else 0
+    ts_k, st_k, g_k = ends[k]
+    moved = moves[k][0]
+    g = torch.Generator(device=st.wx.device)
+    g.set_state(g_k)
+    nxt = TiledEngine(ts_k, cfg_n, kspace_ep=pme).make_run(
+        chunk, detailed_flags=True)(moved, g)[0]
+    ratio = (moved.box.double() / st_k.box.double()).cpu().numpy()
+    bonds0, hh0 = _bond_lengths(ts_k, st_k)
+    bonds1, hh1 = _bond_lengths(ts_k, moved)
+    res.update(checked_move=k, checked_move_accepted=flags[k],
+               move_scale=float(ratio[0]), bond_change=float(max(
+                   np.abs(bonds1 - bonds0).max(), np.abs(hh1 - hh0).max())))
+    same = _first_difference((nxt,), (ends[k + 1][1],)) is None
+    scaled = bool(np.allclose(ratio, ratio[0], rtol=1e-6, atol=0.0))
+    # the guard: the same engine without the live box is refused
+    try:
+        make_mc_barostat(TiledEngine(ts, cfg, kspace_ep=pme),
+                         pressure_atm=pressure_atm, T=cfg.T)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    res.update(next_chunk_from_move=same, isotropic_box=scaled,
+               baked_box_refused=refused)
+    log(f"[npt production] {json.dumps(res)}")
+    log(f"[npt launches] {json.dumps(counts)}, force evaluations {evals}")
+    if counts != {"ww_pair": evals, "ww_tally": 0}:
+        raise RuntimeError("the NPT path did not run every force "
+                           "evaluation through the CUDA kernel K1")
+    if not (same and scaled and refused and np.isfinite(res["pressure_atm"])
+            and res["box_drift"] <= 0.04 and res["bond_change"] < 5e-5
+            and res["h_conserved_finite"]):
+        raise RuntimeError(f"NPT path failed its checks ({res})")
+    log(f"[npt] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(res=res, counts=counts, ts=ts_n, st=st_n)
+
+
+def cutoff_flips(wxg, p, box, wm, *, style, alpha, rc):
+    """The atom pairs of the hot-path function (half stencil plus half the
+    self tile, as water_water_fast_plain takes them) whose in-cutoff test
+    r² < rc² differs between r² computed in float32 from the float32
+    tiles and in float64 from the same tiles, and the float64 force they
+    carry: (count, per-atom force of those pairs (3, ..., A) float64, each
+    pair counted + where float32 takes it in and − where float64 does).
+    The self tile holds each pair twice; so does its force, each half
+    carrying 0.5 as in the plain version."""
+    import numpy as np
+    import torch
+
+    from constant_ph_tpu_torch import units
+    from constant_ph_tpu_torch.tiled import forces
+
+    dims = (1, 2, 3)
+    consts = forces.coulomb_constants(style, alpha, rc)
+    q = np.tile(np.asarray(wm.q_pattern, np.float64), p.W)
+    kqq = torch.as_tensor(units.QQR2E * q[:, None] * q[None, :],
+                          device=wxg.device)
+    mol = torch.arange(3 * p.W, device=wxg.device) // 3
+    oo = ((torch.arange(3 * p.W, device=wxg.device) % 3 == 0)[:, None]
+          & (torch.arange(3 * p.W, device=wxg.device) % 3 == 0)[None, :])
+    w64 = wxg.double()
+    f = torch.zeros_like(w64)
+    n = 0
+    for off in list(p.half_stencil) + [None]:
+        xs = []
+        for x in (wxg, w64):
+            if off is None:
+                xs.append(x)
+            else:
+                xs.append(torch.roll(x, tuple(-o for o in off), dims=dims)
+                          + forces._roll_shift(box.to(x.dtype), p.grid, off,
+                                               x.dtype))
+        r2 = []
+        for x, xj in ((wxg, xs[0]), (w64, xs[1])):
+            d = x[..., :, None] - xj[..., None, :]
+            r2.append(torch.clamp(d[0] * d[0] + d[1] * d[1] + d[2] * d[2],
+                                  min=forces.R2_MIN))
+        in32, in64 = r2[0] < rc * rc, r2[1] < rc * rc
+        flip = in32 != in64
+        if off is None:
+            flip = flip & (mol[:, None] != mol[None, :])
+        n += int(flip.sum()) // (2 if off is None else 1)
+        if not flip.any():
+            continue
+        # +1 where float32 counts the pair and float64 does not
+        sign = flip.double() * torch.where(in32, 1.0, -1.0)
+        d = w64[..., :, None] - xs[1][..., None, :]
+        _, w_r, inv_r2 = forces._screened_coulomb(r2[1], style, rc, consts)
+        inv_r6 = inv_r2 ** 3
+        h = kqq * w_r + oo * (12.0 * wm.c12_OO * inv_r6
+                              - 6.0 * wm.c6_OO) * inv_r6 * inv_r2
+        if off is None:
+            h = 0.5 * h
+        hd = (h * sign)[None] * d
+        fi = torch.sum(hd, dim=-1)
+        fj = -torch.sum(hd, dim=-2)
+        f = f + fi + (fj if off is None else torch.roll(fj, off, dims=dims))
+    return n, f
+
+
 def main():
     import torch
 
@@ -1136,18 +1579,22 @@ def main():
     ts, st = pme["ts"], pme["st"]
     check_pme_on_cpu(ts, st, pme["pme"])
     st, t_counts, _, _ = tally_path(ts, st, pme["pme"], pme["cfg"])
-    k1 = check_ww(ts, st, "pme-production-tiles")
-    k2 = check_tally(ts, st, "pme-production-tiles")
+    # passes forced where one pass fits: bitwise the one-pass outputs
+    k1 = check_ww(ts, st, "pme-production-tiles", forced=(3,))
+    k2 = check_tally(ts, st, "pme-production-tiles", forced=(3, 9))
     # both kernels again on the production state at W 56 (A 168), the
     # width the first two slices timed them at
     ts56, st56 = retile(ts, st, max(56, ts.params.W))
     label = f"pme-production-state-A{3 * ts56.params.W}"
     check_ww(ts56, st56, label)
     check_tally(ts56, st56, label)
+    npt = npt_path(ts, st, pme["pme"], pme["cfg"])
     camp = campaign_path(dev)
     k1c = camp["k1"]
-    k1_errs = [c["f_abs_err"]
-               for c in dsf["checks"] + pme["checks"] + [k1, k1c]]
+    hewl = hewl_path(dev)
+    k1h, k2h, k1o = hewl["k1"], hewl["k2"], hewl["k1_occ"]
+    k1_errs = [c["f_abs_err"] for c in dsf["checks"] + pme["checks"]
+               + [k1, k1c, k1h, k1o]]
     kernels = [
         dict(name="ww_pair", route="cuda",
              source="constant_ph_tpu_torch/csrc/ww_pair.cu",
@@ -1164,17 +1611,39 @@ def main():
              campaign_ms=k1c["ms"], campaign_plain_ms=k1c["plain_ms"],
              campaign_bound_ms=k1c["bound_ms"],
              campaign_pairs_needed=k1c["pairs_needed"],
-             campaign_pairs_evaluated=k1c["pairs_evaluated"]),
+             campaign_pairs_evaluated=k1c["pairs_evaluated"],
+             # the NPT path (PME production state, live box): its launches
+             npt_launches=npt["counts"]["ww_pair"],
+             # configs/hewl_like.json at W 208 (stencil in passes), and
+             # the same state retiled to occupancy + 6 (one pass)
+             hewl_launches=hewl["counts"]["ww_pair"],
+             hewl_W=k1h["A"] // 3, hewl_passes=k1h["passes"],
+             hewl_ms=k1h["ms"], hewl_plain_ms=k1h["plain_ms"],
+             hewl_bound_ms=k1h["bound_ms"],
+             hewl_pairs_needed=k1h["pairs_needed"],
+             hewl_pairs_evaluated=k1h["pairs_evaluated"],
+             hewl_occupancy_W=k1o["A"] // 3,
+             hewl_occupancy_passes=k1o["passes"],
+             hewl_occupancy_ms=k1o["ms"],
+             hewl_occupancy_bound_ms=k1o["bound_ms"],
+             hewl_occupancy_pairs_evaluated=k1o["pairs_evaluated"]),
         dict(name="ww_tally", route="cuda",
              source="constant_ph_tpu_torch/csrc/ww_tally.cu",
              replaces="constant_ph_tpu/tiled/pallas_ww.py:88",
              launches=t_counts["ww_tally"],
-             max_abs_err=max(k2["f_abs_err"], k2["phi_abs_err"]),
+             max_abs_err=max(k2["f_abs_err"], k2["phi_abs_err"],
+                             k2h["f_abs_err"], k2h["phi_abs_err"]),
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
              stencil_bound_ms=k2["stencil_bound_ms"],
              pairs_needed=k2["pairs_needed"],
-             pairs_evaluated=k2["pairs_evaluated"])]
+             pairs_evaluated=k2["pairs_evaluated"],
+             # at W 208 on the hewl production tiles (stencil in passes)
+             hewl_W=k2h["A"] // 3, hewl_passes=k2h["passes"],
+             hewl_ms=k2h["ms"], hewl_plain_ms=k2h["plain_ms"],
+             hewl_bound_ms=k2h["bound_ms"],
+             hewl_pairs_needed=k2h["pairs_needed"],
+             hewl_pairs_evaluated=k2h["pairs_evaluated"])]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power())

@@ -62,7 +62,26 @@ def bonded_params(d: dict, device="cuda") -> BondedParams:
     return _tensors(BondedParams, d, resolve_device(device))
 
 
+# fields a JAX checkpoint may lack and that restart as scalar zeros
+# (cumulative diagnostics appended after the format was set, not
+# dynamics: constant_ph_tpu/checkpoint.py _SCALAR_FILL_FIELDS). Any other
+# missing field is a layout mismatch and is refused.
+_SCALAR_FILL_FIELDS = frozenset({"ext_work"})
+
+
 def system_state(d: dict, device="cuda") -> SystemState:
+    """SystemState from a JAX SystemState flattened to numpy (its ``key``
+    dropped) or a checkpoint's leaves (checkpoint.load)."""
+    d = dict(d)
+    for f in dataclasses.fields(SystemState):
+        if f.name in d:
+            continue
+        if f.name not in _SCALAR_FILL_FIELDS:
+            raise KeyError(
+                f"missing non-optional field '{f.name}' — not a known "
+                f"append-after-save scalar ({sorted(_SCALAR_FILL_FIELDS)}); "
+                "refusing to silently zero-fill it")
+        d[f.name] = np.zeros((), np.float32)
     return _tensors(SystemState, d, resolve_device(device))
 
 

@@ -76,6 +76,19 @@
 // above 48 KB is dynamic and needs
 // cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
+// Passes. The whole stencil takes 1134 W + 4096 bytes, which fits a block
+// up to W = 200. Above that the wrapper (tiled/cuda_ww.py) stages it in
+// passes: 3 passes of one dx plane (9 segments) each, the own tile staged
+// once beside them (418 W + 4096 bytes: 91 KB at W = 208, two blocks an
+// SM up to W = 252). A pass stages its segments, lists its candidates and
+// flushes its survivors before the next overwrites them; each warp's i
+// molecule, its force sums and its energy sums stay in registers across
+// the passes. The warp's k-th surviving molecule pair goes to lane k % 32
+// whatever the pass boundaries, so every lane adds the same pairs in the
+// same order and passes give bitwise the one-pass outputs. Where one pass
+// fits, the kernel runs the one-pass code (MULTI = false) at the same
+// launch configuration as before passes existed.
+//
 // Warp-uniform work: the i molecule's 9 coordinates sit in registers.
 // Lanes test 64 listed candidates a round, two each (O-O distance against
 // the cull radius), and compact the survivors with __ballot_sync into a
@@ -124,15 +137,21 @@ struct WWParams {
   float rc, rc2, two_over_rc, e_sh, f_sh;
   int dsf;
   int gx, gy, gz, W;
+  int spp;                         // stencil segments staged a pass
 };
 
 int blocks_per_cell(int W) { return (W + WARPS - 1) / WARPS; }
 
-// dynamic shared memory: staged stencil, radii, candidate list, survivor
-// rings
-size_t smem_bytes(int W) {
-  return sizeof(float) * (size_t)NSEG * (3 * 3 * W + W)
-         + sizeof(short) * ((size_t)NSEG * W + WARPS * RING);
+// stencil segments staged at a time when the stencil is taken in `passes`
+int segs_per_pass(int passes) { return (NSEG + passes - 1) / passes; }
+
+// dynamic shared memory: staged segments, radii, candidate list, survivor
+// rings; with more than one pass, also the own tile and its radii
+size_t smem_bytes(int W, int passes) {
+  const size_t spp = segs_per_pass(passes);
+  const size_t staged = spp + (passes > 1 ? 1 : 0);
+  return sizeof(float) * staged * (3 * 3 * W + W)
+         + sizeof(short) * (spp * W + WARPS * RING);
 }
 
 __device__ __forceinline__ int wrap_cell(int c, int g, float L, float* sh) {
@@ -159,6 +178,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Stages segments [s_first, s_first + n_seg) of the stencil into x ([n_seg]
+// [3][A], 16 bytes per cp.async; row = 3 * segment + dim), adds their image
+// shifts in place (so dx = x_i - (x_j + shift), as the plain version
+// computes it) and stores each molecule's radius in rho ([n_seg][W]).
+__device__ __forceinline__ void stage(
+    float* x, float* rho, const float* __restrict__ wx, int s_first,
+    int n_seg, const int* seg_cell, const float* seg_shift, int W, int G) {
+  const int A = 3 * W;
+  const int A4 = A / 4;
+  for (int k = threadIdx.x; k < n_seg * 3 * A4; k += NT) {
+    const int row = k / A4;
+    const int c = 4 * (k - row * A4);
+    const int s = row / 3;
+    cp_async16(x + row * A + c,
+               wx + (size_t)((row - 3 * s) * G + seg_cell[s_first + s]) * A
+                   + c);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int c = threadIdx.x; c < n_seg * W; c += NT) {
+    const int s = c / W;
+    float* b = x + s * 3 * A + 3 * (c - s * W);
+    float h1 = 0.f, h2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float sh = seg_shift[3 * (s_first + s) + d];
+      const float o = b[d * A] + sh;
+      const float x1 = b[d * A + 1] + sh;
+      const float x2 = b[d * A + 2] + sh;
+      b[d * A] = o;
+      b[d * A + 1] = x1;
+      b[d * A + 2] = x2;
+      h1 += (x1 - o) * (x1 - o);
+      h2 += (x2 - o) * (x2 - o);
+    }
+    rho[c] = sqrtf(fmaxf(h1, h2));
+  }
+  __syncthreads();
+}
+
+// MULTI = false: the whole stencil is staged at once (one pass). MULTI =
+// true: it is staged p.spp segments at a time, the own tile beside them.
+template <bool MULTI>
 __global__ void __launch_bounds__(NT, 2)
 ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
                float* __restrict__ f, float* __restrict__ e_part,
@@ -174,12 +236,16 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
   const int W = p.W;
   const int A = 3 * W;
   const int G = p.gx * p.gy * p.gz;
-  float* sx = smem;                          // [NSEG][3][A], shifted
-  float* rho = sx + NSEG * 3 * A;            // [NSEG][W]
-  // candidates as (segment << 8) | molecule: W < 256 (shared memory
-  // bounds it near 210)
-  short* cand = reinterpret_cast<short*>(rho + NSEG * W);  // [NSEG * W]
-  short* ring = cand + NSEG * W;
+  const int spp = MULTI ? p.spp : NSEG;      // segments a pass
+  const int own_tiles = MULTI ? 1 : 0;
+  float* sx = smem;                          // [spp][3][A], shifted
+  float* own_x = sx + spp * 3 * A;           // [3][A] (MULTI)
+  float* rho = own_x + own_tiles * 3 * A;    // [spp][W]
+  float* own_rho = rho + spp * W;            // [W] (MULTI)
+  // candidates as (segment << 8) | molecule: W < 256 (the wrapper takes
+  // W <= 252)
+  short* cand = reinterpret_cast<short*>(own_rho + own_tiles * W);
+  short* ring = cand + spp * W;              // [WARPS][RING]
   const int cell = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -201,40 +267,16 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
   }
   __syncthreads();
 
-  // the whole stencil, 16 bytes per cp.async; row = 3 * segment + dim
-  const int A4 = A / 4;
-  for (int k = tid; k < NSEG * 3 * A4; k += NT) {
-    const int row = k / A4;
-    const int c = 4 * (k - row * A4);
-    const int s = row / 3;
-    cp_async16(sx + row * A + c,
-               wx + (size_t)((row - 3 * s) * G + seg_cell[s]) * A + c);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  // the image shifts added in place, and each molecule's radius
-  for (int c = tid; c < NSEG * W; c += NT) {
-    const int s = c / W;
-    float* b = sx + s * 3 * A + 3 * (c - s * W);
-    float h1 = 0.f, h2 = 0.f;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const float sh = seg_shift[3 * s + d];
-      const float o = b[d * A] + sh;
-      const float x1 = b[d * A + 1] + sh;
-      const float x2 = b[d * A + 2] + sh;
-      b[d * A] = o;
-      b[d * A + 1] = x1;
-      b[d * A + 2] = x2;
-      h1 += (x1 - o) * (x1 - o);
-      h2 += (x2 - o) * (x2 - o);
-    }
-    rho[c] = sqrtf(fmaxf(h1, h2));
-  }
-  __syncthreads();
+  // one pass: the whole stencil now, the own tile at segment SELF_SEG;
+  // passes: the own tile alone now, the stencil pass by pass below
+  if (MULTI)
+    stage(own_x, own_rho, wx, SELF_SEG, 1, seg_cell, seg_shift, W, G);
+  else
+    stage(sx, rho, wx, 0, NSEG, seg_cell, seg_shift, W, G);
+  const float* own = MULTI ? own_x : sx + SELF_SEG * 3 * A;
+  const float* rho_own = MULTI ? own_rho : rho + SELF_SEG * W;
 
   const unsigned lanes_below = (1u << lane) - 1u;
-  const float* own = sx + SELF_SEG * 3 * A;
   const int m_first = blockIdx.x * WARPS;    // the block's i molecules
   const int m_end = m_first + WARPS < W ? m_first + WARPS : W;
 
@@ -250,7 +292,7 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
         lo[d] = fminf(lo[d], own[d * A + 3 * mi]);
         hi[d] = fmaxf(hi[d], own[d * A + 3 * mi]);
       }
-      rmax = fmaxf(rmax, rho[SELF_SEG * W + mi]);
+      rmax = fmaxf(rmax, rho_own[mi]);
     }
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
@@ -260,65 +302,79 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
     ibox[6] = rmax;
   }
   __syncthreads();
-  // candidates: the stencil molecules within rc + rho_max + rho_j +
-  // CULL_MARGIN of that box, in stencil order. A molecule left out is
-  // one every i molecule of the block would cull.
-  int ncand = 0;
-  for (int base = 0; base < NSEG * W; base += 2 * NT) {
-    bool near[2];
-    int code[2];
-    unsigned ballot[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = base + h * NT + tid;
-      near[h] = false;
-      code[h] = 0;
-      if (c < NSEG * W) {
-        const int s = c / W;
-        const int m = c - s * W;
-        const float* b = sx + s * 3 * A + 3 * m;
-        float dd = 0.f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          const float x = b[d * A];
-          const float e = fmaxf(fmaxf(ibox[d] - x, x - ibox[3 + d]), 0.f);
-          dd += e * e;
-        }
-        const float lim = p.rc + CULL_MARGIN + ibox[6] + rho[c];
-        near[h] = dd < lim * lim;
-        code[h] = (s << 8) | m;
-      }
-      ballot[h] = __ballot_sync(FULL, near[h]);
-      if (lane == 0) wnear[h][warp] = __popc(ballot[h]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int at = ncand;
-      for (int k = 0; k < WARPS; ++k) {
-        at += k < warp ? wnear[h][k] : 0;
-        ncand += wnear[h][k];
-      }
-      if (near[h]) cand[at + __popc(ballot[h] & lanes_below)] =
-          static_cast<short>(code[h]);
-    }
-    __syncthreads();
-  }
 
-  const int rounds = (ncand + 63) / 64;      // 64 candidates a round
-  float elj = 0.f, ecoul = 0.f;
-  int kept = 0;                              // molecule pairs evaluated
-
+  // the warp's i molecule: its 9 coordinates and its force sums stay in
+  // registers across the passes
   const int mi = m_first + warp;
-  if (mi < m_end) {
-    float xi[3][3];                          // [atom][dim]
+  const bool active = mi < m_end;
+  float xi[3][3] = {};                       // [atom][dim]
+  float fi[3][3] = {};
+  float lim_i = 0.f;
+  if (active) {
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
       for (int d = 0; d < 3; ++d) xi[a][d] = own[d * A + 3 * mi + a];
-    const float lim_i = p.rc + CULL_MARGIN + rho[SELF_SEG * W + mi];
-    float fi[3][3] = {};
-    int head = 0, cnt = 0;                   // queued survivors
+    lim_i = p.rc + CULL_MARGIN + rho_own[mi];
+  }
+  float elj = 0.f, ecoul = 0.f;
+  int kept = 0;                              // molecule pairs evaluated
+  int head = 0, cnt = 0;                     // queued survivors
+
+  for (int s0 = 0; s0 < NSEG; s0 += spp) {
+    const int ns = NSEG - s0 < spp ? NSEG - s0 : spp;
+    if (MULTI) {
+      __syncthreads();                       // every warp is done with the
+                                             // last pass's segments
+      stage(sx, rho, wx, s0, ns, seg_cell, seg_shift, W, G);
+    }
+    // candidates: the staged molecules within rc + rho_max + rho_j +
+    // CULL_MARGIN of that box, in stencil order. A molecule left out is
+    // one every i molecule of the block would cull.
+    int ncand = 0;
+    for (int base = 0; base < ns * W; base += 2 * NT) {
+      bool near[2];
+      int code[2];
+      unsigned ballot[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = base + h * NT + tid;
+        near[h] = false;
+        code[h] = 0;
+        if (c < ns * W) {
+          const int s = c / W;
+          const int m = c - s * W;
+          const float* b = sx + s * 3 * A + 3 * m;
+          float dd = 0.f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float x = b[d * A];
+            const float e = fmaxf(fmaxf(ibox[d] - x, x - ibox[3 + d]), 0.f);
+            dd += e * e;
+          }
+          const float lim = p.rc + CULL_MARGIN + ibox[6] + rho[c];
+          near[h] = dd < lim * lim;
+          code[h] = ((s0 + s) << 8) | m;
+        }
+        ballot[h] = __ballot_sync(FULL, near[h]);
+        if (lane == 0) wnear[h][warp] = __popc(ballot[h]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int at = ncand;
+        for (int k = 0; k < WARPS; ++k) {
+          at += k < warp ? wnear[h][k] : 0;
+          ncand += wnear[h][k];
+        }
+        if (near[h]) cand[at + __popc(ballot[h] & lanes_below)] =
+            static_cast<short>(code[h]);
+      }
+      __syncthreads();
+    }
+    if (!active) continue;
+
+    const int rounds = (ncand + 63) / 64;    // 64 candidates a round
     for (int r = 0; r <= rounds; ++r) {
       if (r < rounds) {
         // two candidates per lane, tested before either is queued
@@ -332,11 +388,11 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
           const int s = code[h] >> 8;
           const int m = code[h] & 255;
           if (!(s == SELF_SEG && m == mi)) {
-            const float* b = sx + s * 3 * A + 3 * m;
+            const float* b = sx + (s - s0) * 3 * A + 3 * m;
             const float dx = xi[0][0] - b[0];
             const float dy = xi[0][1] - b[A];
             const float dz = xi[0][2] - b[2 * A];
-            const float lim = lim_i + rho[s * W + m];
+            const float lim = lim_i + rho[(s - s0) * W + m];
             keep[h] = dx * dx + dy * dy + dz * dz < lim * lim;
           }
         }
@@ -349,18 +405,21 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
           cnt += __popc(ballot);
         }
       }
-      // whenever 32 are queued, and at the end for the rest: one
-      // surviving molecule pair per lane
+      // whenever 32 are queued, and at the end of the pass for the rest:
+      // one surviving molecule pair per lane. The warp's survivor number k
+      // (counted over all passes) goes to lane k % 32, so every lane sums
+      // the same pairs in the same order however the stencil is staged
       while (cnt >= 32 || (r == rounds && cnt > 0)) {
         __syncwarp();
         const int take = cnt < 32 ? cnt : 32;
-        const int e = lane < take ? ring[(head + lane) & (RING - 1)] : -1;
+        const int j = (lane - kept) & 31;    // this lane's place in the batch
+        const int e = j < take ? ring[(head + j) & (RING - 1)] : -1;
         __syncwarp();
         head = (head + take) & (RING - 1);
         cnt -= take;
         kept += take;
         if (e < 0) continue;
-        const float* bj = sx + (e >> 8) * 3 * A + 3 * (e & 255);
+        const float* bj = sx + ((e >> 8) - s0) * 3 * A + 3 * (e & 255);
 #pragma unroll
         for (int b = 0; b < 3; ++b) {
           const float xj = bj[b], yj = bj[A + b], zj = bj[2 * A + b];
@@ -404,6 +463,9 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
         }
       }
     }
+  }
+
+  if (active) {
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
@@ -476,6 +538,36 @@ energy_sum_kernel(const float* __restrict__ e_part,
   }
 }
 
+// raise the kernel's dynamic shared memory limit once per new maximum, so
+// that later calls (and a CUDA graph capturing them) only launch; then
+// launch both kernels
+template <bool MULTI>
+int launch(const float* wx, const float* box, float* f, float* e_part,
+           int* n_part, float* e_out, int* n_out, const WWParams& p,
+           size_t smem, cudaStream_t s) {
+  static size_t smem_allowed = 0;
+  cudaError_t err;
+  if (smem > smem_allowed) {
+    err = cudaFuncSetAttribute(ww_pair_kernel<MULTI>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(
+        ww_pair_kernel<MULTI>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
+  }
+  const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz);
+  ww_pair_kernel<MULTI><<<grid, NT, smem, s>>>(wx, box, f, e_part, n_part,
+                                               p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  energy_sum_kernel<<<1, NT, 0, s>>>(e_part, n_part, grid.x * grid.y,
+                                     e_out, n_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -485,16 +577,20 @@ int ww_pair_param_count() { return P_COUNT; }
 // blocks of the pair kernel: the caller allocates 3 scratch words each
 int ww_pair_blocks(int G, int W) { return G * blocks_per_cell(W); }
 
-// bytes of dynamic shared memory a block of the pair kernel takes
-int ww_pair_smem_bytes(int W) { return static_cast<int>(smem_bytes(W)); }
+// bytes of dynamic shared memory a block of the pair kernel takes when the
+// stencil is staged in `passes`
+int ww_pair_smem_bytes(int W, int passes) {
+  return static_cast<int>(smem_bytes(W, passes));
+}
 
-// Launches both kernels on `stream`; returns the CUDA error (0 = ok).
+// Launches both kernels on `stream`, the stencil staged in `passes` (1:
+// all 27 segments at once); returns the CUDA error (0 = ok).
 // e_part: 2 floats per block, n_part: 1 int per block (scratch);
 // e_out: (e_lj, e_coul); n_out: atom pairs evaluated.
 int ww_pair_forward(const float* wx, const float* box, float* f,
                     float* e_part, int* n_part, float* e_out, int* n_out,
                     int gx, int gy, int gz, int W, const float* prm,
-                    int dsf, void* stream) {
+                    int dsf, int passes, void* stream) {
   WWParams p;
   for (int k = 0; k < NCOEF; ++k) {
     p.c1[k] = prm[P_C1 + k];
@@ -518,32 +614,12 @@ int ww_pair_forward(const float* wx, const float* box, float* f,
   p.gy = gy;
   p.gz = gz;
   p.W = W;
-  const int G = gx * gy * gz;
-
-  // raise the kernel's dynamic shared memory limit once per new maximum,
-  // so that later calls (and a CUDA graph capturing them) only launch
-  static size_t smem_allowed = 0;
-  const size_t smem = smem_bytes(W);
-  cudaError_t err;
-  if (smem > smem_allowed) {
-    err = cudaFuncSetAttribute(ww_pair_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(
-        ww_pair_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
+  p.spp = segs_per_pass(passes);
+  const size_t smem = smem_bytes(W, passes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_per_cell(W), G);
-  ww_pair_kernel<<<grid, NT, smem, s>>>(wx, box, f, e_part, n_part, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  energy_sum_kernel<<<1, NT, 0, s>>>(e_part, n_part, grid.x * grid.y,
-                                     e_out, n_out);
-  return static_cast<int>(cudaGetLastError());
+  if (passes > 1)
+    return launch<true>(wx, box, f, e_part, n_part, e_out, n_out, p, smem, s);
+  return launch<false>(wx, box, f, e_part, n_part, e_out, n_out, p, smem, s);
 }
 
 }  // extern "C"

@@ -87,6 +87,24 @@
 // __launch_bounds__(384, 2)); smaller blocks also leave fewer idle warps
 // in a cell's last, partly filled block.
 //
+// Passes. The whole stencil takes 1998 W + 1536 bytes, which fits a block
+// up to W = 112. Above that the wrapper (tiled/cuda_ww.py) stages it in
+// passes, the own tile staged once beside them: 3 passes of 9 offsets
+// take 738 W + 1536 bytes (151 KB at W = 208, one block an SM), 9 passes
+// of 3 offsets 294 W + 1536 (61 KB at W = 208, two blocks an SM up to W
+// = 252), and the wrapper takes the fewest passes that keep two blocks an
+// SM. rho_max is the largest radius over all 27 offsets, read from device
+// memory before the first pass, so the cull is the one-pass cull: no
+// per-pass radius. A pass stages its offsets, lists its candidates and
+// flushes its survivors before the next overwrites them; each warp's 18
+// sums stay in registers across the passes. The warp's k-th surviving
+// molecule pair goes to lane k % 32 whatever the pass boundaries, so
+// every lane adds the same pairs in the same order and passes give
+// bitwise the one-pass outputs. A block of parked molecules still stops
+// before any staging. Where one pass fits, the kernel runs the one-pass
+// code (MULTI = false) at the same launch configuration as before passes
+// existed.
+//
 // Warp-uniform work: lanes test 32 listed candidates a round (O-O
 // distance against the cull radius) and compact the survivors with
 // __ballot_sync into the warp's ring, in lane order. Whenever 32 are
@@ -133,15 +151,21 @@ struct TallyParams {
   float c6, c12, esh, c6x6, c12x12;
   float rc, rc2, far, alpha, two_over_sqrt_pi, qqr2e, e_sh, f_sh;
   int gx, gy, gz, W;
+  int opp;                         // stencil offsets staged a pass
 };
 
 int blocks_per_cell(int W) { return (W + WARPS - 1) / WARPS; }
 
-// dynamic shared memory: the staged stencil, the candidate list and the
-// survivor rings
-size_t smem_bytes(int W) {
-  return sizeof(float) * (size_t)NOFF * NIN * 3 * W
-         + sizeof(short) * ((size_t)NOFF * W + WARPS * RING);
+// stencil offsets staged at a time when the stencil is taken in `passes`
+int offs_per_pass(int passes) { return (NOFF + passes - 1) / passes; }
+
+// dynamic shared memory: the staged offsets, the candidate list and the
+// survivor rings; with more than one pass, also the own tile
+size_t smem_bytes(int W, int passes) {
+  const size_t opp = offs_per_pass(passes);
+  const size_t staged = opp + (passes > 1 ? 1 : 0);
+  return sizeof(float) * staged * NIN * 3 * W
+         + sizeof(short) * (opp * W + WARPS * RING);
 }
 
 __device__ __forceinline__ int wrap_cell(int c, int g) {
@@ -176,7 +200,8 @@ __device__ __forceinline__ float min_image(float d, float L, float iL) {
   return d - L * rintf(d * iL);
 }
 
-// b: a molecule's O slot in row 0 of a staged tile of row length A
+// b: a molecule's O slot in row 0 of a tile of row length A (staged, or
+// the packed tile in device memory)
 __device__ __forceinline__ bool parked(const float* b, int A) {
   return b[5 * A] == 0.f && b[5 * A + 1] == 0.f && b[5 * A + 2] == 0.f;
 }
@@ -263,7 +288,26 @@ __device__ __forceinline__ void molecule_pair(
   }
 }
 
-template <bool DSF, bool SCREENED>
+// Stages the 6 used rows of offsets [s_first, s_first + n_off) into st
+// ([n_off][NIN][A], 16 bytes per cp.async; row = NIN * offset + packed
+// row). The caller waits (cp_async_wait_all + __syncthreads).
+__device__ __forceinline__ void stage(float* st, const float* __restrict__ wt,
+                                      int s_first, int n_off,
+                                      const int* seg_cell, int A) {
+  const int A4 = A / 4;
+  for (int k = threadIdx.x; k < n_off * NIN * A4; k += NT) {
+    const int row = k / A4;
+    const int c = 4 * (k - row * A4);
+    const int s = row / NIN;
+    cp_async16(st + row * A + c,
+               wt + ((size_t)seg_cell[s_first + s] * NROW + (row - s * NIN))
+                   * A + c);
+  }
+}
+
+// MULTI = false: the whole stencil is staged at once (one pass). MULTI =
+// true: it is staged p.opp offsets at a time, the own tile beside them.
+template <bool DSF, bool SCREENED, bool MULTI>
 __global__ void __launch_bounds__(NT, 2)
 ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
                 float* __restrict__ out, int* __restrict__ count,
@@ -296,11 +340,13 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
     return;
   }
 
-  float* st = smem;                          // [NOFF][NIN][A]
-  // candidates as (offset << 8) | molecule: W < 256 (shared memory
-  // bounds it near 115)
-  short* cand = reinterpret_cast<short*>(st + NOFF * NIN * A);
-  short* ring = cand + NOFF * W + warp * RING;
+  const int opp = MULTI ? p.opp : NOFF;      // offsets a pass
+  float* st = smem;                          // [opp][NIN][A]
+  float* own_t = st + opp * NIN * A;         // [NIN][A] (MULTI)
+  // candidates as (offset << 8) | molecule: W < 256 (the wrapper takes
+  // W <= 252)
+  short* cand = reinterpret_cast<short*>(own_t + (MULTI ? NIN * A : 0));
+  short* ring = cand + opp * W + warp * RING;
 
   if (tid < NOFF) {
     const int cz = cell % p.gz;
@@ -312,29 +358,37 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
     seg_cell[tid] = (nx * p.gy + ny) * p.gz + nz;
   }
   __syncthreads();
-  // the 6 used rows of the 27 tiles, 16 bytes per cp.async; row = NIN *
-  // offset + packed row
-  const int A4 = A / 4;
-  for (int k = tid; k < NOFF * NIN * A4; k += NT) {
-    const int row = k / A4;
-    const int c = 4 * (k - row * A4);
-    const int s = row / NIN;
-    cp_async16(st + row * A + c,
-               wt + ((size_t)seg_cell[s] * NROW + (row - s * NIN)) * A + c);
-  }
-  cp_async_wait_all();
-  __syncthreads();
+  // one pass: the whole stencil now; passes: the own tile now, the
+  // stencil pass by pass below
+  if (MULTI)
+    stage(own_t, wt, SELF_OFF, 1, seg_cell, A);
+  else
+    stage(st, wt, 0, NOFF, seg_cell, A);
 
   const float L[3] = {box[0], box[1], box[2]};
   const float iL[3] = {1.f / L[0], 1.f / L[1], 1.f / L[2]};
-  const float* own = st + SELF_OFF * NIN * A;
+  const float* own = MULTI ? own_t : st + SELF_OFF * NIN * A;
 
-  // the largest radius of the stencil's live molecules
+  // the largest radius of the stencil's live molecules (over all 27
+  // offsets, whatever is staged: the cull with it is exact); with passes
+  // read from device memory while the own tile is copied in
   float rmax = 0.f;
-  for (int c = tid; c < NOFF * W; c += NT) {
-    const int s = c / W;
-    const float* b = st + s * NIN * A + 3 * (c - s * W);
-    if (!parked(b, A)) rmax = fmaxf(rmax, radius(b, A));
+  if (MULTI) {
+    for (int c = tid; c < NOFF * W; c += NT) {
+      const int s = c / W;
+      const float* b = wt + (size_t)seg_cell[s] * NROW * A + 3 * (c - s * W);
+      if (!parked(b, A)) rmax = fmaxf(rmax, radius(b, A));
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  } else {
+    cp_async_wait_all();
+    __syncthreads();
+    for (int c = tid; c < NOFF * W; c += NT) {
+      const int s = c / W;
+      const float* b = st + s * NIN * A + 3 * (c - s * W);
+      if (!parked(b, A)) rmax = fmaxf(rmax, radius(b, A));
+    }
   }
   rmax = warp_max(rmax);
   if (lane == 0) wred[warp] = rmax;
@@ -368,97 +422,120 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
   }
   __syncthreads();
   const float rho_max = ibox[7];
-
-  // candidates: the live stencil molecules whose O is within rc +
-  // rho_i_max + rho_max + 2 CULL_MARGIN of that box on the torus, in
-  // stencil order. A molecule left out is one every i of the block culls.
   const unsigned lanes_below = (1u << lane) - 1u;
   const float lim_b = p.rc + ibox[6] + rho_max + 2.f * CULL_MARGIN;
-  int ncand = 0;
-  for (int base = 0; base < NOFF * W; base += NT) {
-    const int c = base + tid;
-    bool near = false;
-    int code = 0;
-    if (c < NOFF * W) {
-      const int s = c / W;
-      const int m = c - s * W;
-      const float* b = st + s * NIN * A + 3 * m;
-      if (!parked(b, A)) {
-        float dd = 0.f;
+
+  // the warp's i molecule; its 18 sums stay in registers across the passes
+  const int mi = m_first + warp;
+  const bool has_i = mi < m_end;
+  const float* bi = own + 3 * (has_i ? mi : m_first);
+  const bool work = has_i && !parked(bi, A);
+  float acc[3][NOUT] = {};
+  float xi[3] = {}, lim2 = 0.f;
+  if (work) {
+    xi[0] = bi[0];                           // O of molecule i
+    xi[1] = bi[A];
+    xi[2] = bi[2 * A];
+    const float lim = p.rc + radius(bi, A) + rho_max + CULL_MARGIN;
+    lim2 = lim * lim;
+  }
+  int kept = 0;                              // molecule pairs evaluated
+  int head = 0, cnt = 0;                     // queued survivors
+
+  for (int s0 = 0; s0 < NOFF; s0 += opp) {
+    const int no = NOFF - s0 < opp ? NOFF - s0 : opp;
+    if (MULTI) {
+      __syncthreads();                       // every warp is done with the
+                                             // last pass's offsets
+      stage(st, wt, s0, no, seg_cell, A);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    // candidates: the live staged molecules whose O is within rc +
+    // rho_i_max + rho_max + 2 CULL_MARGIN of that box on the torus, in
+    // stencil order. A molecule left out is one every i of the block
+    // culls.
+    int ncand = 0;
+    for (int base = 0; base < no * W; base += NT) {
+      const int c = base + tid;
+      bool near = false;
+      int code = 0;
+      if (c < no * W) {
+        const int s = c / W;
+        const int m = c - s * W;
+        const float* b = st + s * NIN * A + 3 * m;
+        if (!parked(b, A)) {
+          float dd = 0.f;
 #pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          const float x = min_image(b[d * A] - ibox[d], L[d], iL[d]);
-          const float e = fmaxf(fabsf(x) - ibox[3 + d], 0.f);
-          dd += e * e;
+          for (int d = 0; d < 3; ++d) {
+            const float x = min_image(b[d * A] - ibox[d], L[d], iL[d]);
+            const float e = fmaxf(fabsf(x) - ibox[3 + d], 0.f);
+            dd += e * e;
+          }
+          near = dd < lim_b * lim_b;
         }
-        near = dd < lim_b * lim_b;
+        code = ((s0 + s) << 8) | m;
       }
-      code = (s << 8) | m;
+      const unsigned ballot = __ballot_sync(FULL, near);
+      if (lane == 0) wnum[warp] = __popc(ballot);
+      __syncthreads();
+      int at = ncand;
+      for (int k = 0; k < WARPS; ++k) {
+        at += k < warp ? wnum[k] : 0;
+        ncand += wnum[k];
+      }
+      if (near) cand[at + __popc(ballot & lanes_below)] =
+          static_cast<short>(code);
+      __syncthreads();
     }
-    const unsigned ballot = __ballot_sync(FULL, near);
-    if (lane == 0) wnum[warp] = __popc(ballot);
-    __syncthreads();
-    int at = ncand;
-    for (int k = 0; k < WARPS; ++k) {
-      at += k < warp ? wnum[k] : 0;
-      ncand += wnum[k];
+    if (!work) continue;
+
+    const int rounds = (ncand + 31) / 32;
+    for (int r = 0; r <= rounds; ++r) {
+      if (r < rounds) {
+        const int k = 32 * r + lane;
+        bool keep = false;
+        int code = 0;
+        if (k < ncand) {
+          code = cand[k];
+          const int s = code >> 8;
+          const int m = code & 255;
+          if (!(s == SELF_OFF && m == mi)) {
+            const float* b = st + (s - s0) * NIN * A + 3 * m;
+            const float dx = min_image(xi[0] - b[0], L[0], iL[0]);
+            const float dy = min_image(xi[1] - b[A], L[1], iL[1]);
+            const float dz = min_image(xi[2] - b[2 * A], L[2], iL[2]);
+            keep = dx * dx + dy * dy + dz * dz < lim2;
+          }
+        }
+        const unsigned ballot = __ballot_sync(FULL, keep);
+        if (keep)
+          ring[(head + cnt + __popc(ballot & lanes_below)) & (RING - 1)] =
+              static_cast<short>(code);
+        cnt += __popc(ballot);
+      }
+      // whenever 32 are queued, and at the end of the pass for the rest:
+      // one surviving molecule pair per lane. The warp's survivor number k
+      // (counted over all passes) goes to lane k % 32, so every lane sums
+      // the same pairs in the same order however the stencil is staged
+      while (cnt >= 32 || (r == rounds && cnt > 0)) {
+        __syncwarp();
+        const int take = cnt < 32 ? cnt : 32;
+        const int j = (lane - kept) & 31;    // this lane's place in the batch
+        const int e = j < take ? ring[(head + j) & (RING - 1)] : -1;
+        __syncwarp();
+        head = (head + take) & (RING - 1);
+        cnt -= take;
+        kept += take;
+        if (e >= 0)
+          molecule_pair<DSF, SCREENED>(
+              st + ((e >> 8) - s0) * NIN * A + 3 * (e & 255), A, bi, L, iL,
+              p, acc);
+      }
     }
-    if (near) cand[at + __popc(ballot & lanes_below)] =
-        static_cast<short>(code);
-    __syncthreads();
   }
 
-  int kept = 0;                              // molecule pairs evaluated
-  const int mi = m_first + warp;
-  if (mi < m_end) {
-    const float* bi = own + 3 * mi;
-    float acc[3][NOUT] = {};
-    if (!parked(bi, A)) {
-      const float xi[3] = {bi[0], bi[A], bi[2 * A]};   // O of molecule i
-      const float lim = p.rc + radius(bi, A) + rho_max + CULL_MARGIN;
-      const float lim2 = lim * lim;
-      const int rounds = (ncand + 31) / 32;
-      int head = 0, cnt = 0;                 // queued survivors
-      for (int r = 0; r <= rounds; ++r) {
-        if (r < rounds) {
-          const int k = 32 * r + lane;
-          bool keep = false;
-          int code = 0;
-          if (k < ncand) {
-            code = cand[k];
-            const int s = code >> 8;
-            const int m = code & 255;
-            if (!(s == SELF_OFF && m == mi)) {
-              const float* b = st + s * NIN * A + 3 * m;
-              const float dx = min_image(xi[0] - b[0], L[0], iL[0]);
-              const float dy = min_image(xi[1] - b[A], L[1], iL[1]);
-              const float dz = min_image(xi[2] - b[2 * A], L[2], iL[2]);
-              keep = dx * dx + dy * dy + dz * dz < lim2;
-            }
-          }
-          const unsigned ballot = __ballot_sync(FULL, keep);
-          if (keep)
-            ring[(head + cnt + __popc(ballot & lanes_below)) & (RING - 1)] =
-                static_cast<short>(code);
-          cnt += __popc(ballot);
-        }
-        // whenever 32 are queued, and at the end for the rest: one
-        // surviving molecule pair per lane
-        while (cnt >= 32 || (r == rounds && cnt > 0)) {
-          __syncwarp();
-          const int take = cnt < 32 ? cnt : 32;
-          const int e = lane < take ? ring[(head + lane) & (RING - 1)] : -1;
-          __syncwarp();
-          head = (head + take) & (RING - 1);
-          cnt -= take;
-          kept += take;
-          if (e >= 0)
-            molecule_pair<DSF, SCREENED>(
-                st + (e >> 8) * NIN * A + 3 * (e & 255), A, bi, L, iL, p,
-                acc);
-        }
-      }
-    }
+  if (has_i) {
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
@@ -487,20 +564,19 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
   }
 }
 
-template <bool DSF, bool SCREENED>
+template <bool DSF, bool SCREENED, bool MULTI>
 int launch(const float* wt, const float* box, float* out, int* count,
-           const TallyParams& p, cudaStream_t s) {
+           const TallyParams& p, size_t smem, cudaStream_t s) {
   // raise the kernel's dynamic shared memory limit once per new maximum,
   // so that later calls (and a CUDA graph capturing them) only launch
   static size_t smem_allowed = 0;
-  const size_t smem = smem_bytes(p.W);
   cudaError_t err;
   if (smem > smem_allowed) {
-    err = cudaFuncSetAttribute(ww_tally_kernel<DSF, SCREENED>,
+    err = cudaFuncSetAttribute(ww_tally_kernel<DSF, SCREENED, MULTI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(ww_tally_kernel<DSF, SCREENED>,
+    err = cudaFuncSetAttribute(ww_tally_kernel<DSF, SCREENED, MULTI>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -509,9 +585,18 @@ int launch(const float* wt, const float* box, float* out, int* count,
   err = cudaMemsetAsync(count, 0, sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz);
-  ww_tally_kernel<DSF, SCREENED><<<grid, NT, smem, s>>>(wt, box, out, count,
-                                                        p);
+  ww_tally_kernel<DSF, SCREENED, MULTI><<<grid, NT, smem, s>>>(
+      wt, box, out, count, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DSF, bool SCREENED>
+int launch_passes(const float* wt, const float* box, float* out, int* count,
+                  const TallyParams& p, int passes, cudaStream_t s) {
+  const size_t smem = smem_bytes(p.W, passes);
+  if (passes > 1)
+    return launch<DSF, SCREENED, true>(wt, box, out, count, p, smem, s);
+  return launch<DSF, SCREENED, false>(wt, box, out, count, p, smem, s);
 }
 
 }  // namespace
@@ -520,14 +605,19 @@ extern "C" {
 
 int ww_tally_param_count() { return P_COUNT; }
 
-// bytes of dynamic shared memory a block of the kernel takes
-int ww_tally_smem_bytes(int W) { return static_cast<int>(smem_bytes(W)); }
+// bytes of dynamic shared memory a block of the kernel takes when the
+// stencil is staged in `passes`
+int ww_tally_smem_bytes(int W, int passes) {
+  return static_cast<int>(smem_bytes(W, passes));
+}
 
-// Launches the kernel on `stream`; returns the CUDA error (0 = ok).
-// count: one int, set to the atom pairs evaluated.
+// Launches the kernel on `stream`, the stencil staged in `passes` (1: all
+// 27 offsets at once); returns the CUDA error (0 = ok). count: one int,
+// set to the atom pairs evaluated.
 int ww_tally_forward(const float* wt, const float* box, float* out,
                      int* count, int gx, int gy, int gz, int W,
-                     const float* prm, int dsf, int screened, void* stream) {
+                     const float* prm, int dsf, int screened, int passes,
+                     void* stream) {
   TallyParams p;
   p.c6 = prm[P_C6];
   p.c12 = prm[P_C12];
@@ -546,13 +636,18 @@ int ww_tally_forward(const float* wt, const float* box, float* out,
   p.gy = gy;
   p.gz = gz;
   p.W = W;
+  p.opp = offs_per_pass(passes);
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dsf)
-    return screened ? launch<true, true>(wt, box, out, count, p, s)
-                    : launch<true, false>(wt, box, out, count, p, s);
-  return screened ? launch<false, true>(wt, box, out, count, p, s)
-                  : launch<false, false>(wt, box, out, count, p, s);
+    return screened ? launch_passes<true, true>(wt, box, out, count, p,
+                                                passes, s)
+                    : launch_passes<true, false>(wt, box, out, count, p,
+                                                 passes, s);
+  return screened ? launch_passes<false, true>(wt, box, out, count, p,
+                                               passes, s)
+                  : launch_passes<false, false>(wt, box, out, count, p,
+                                                passes, s);
 }
 
 }  // extern "C"

@@ -25,6 +25,7 @@ import subprocess
 import torch
 
 from constant_ph_tpu_torch import units
+from constant_ph_tpu_torch.tiled.layout import W_MAX
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
@@ -84,17 +85,17 @@ _ARGTYPES = {
     "ww_pair": {
         "ww_pair_param_count": [],
         "ww_pair_blocks": [ctypes.c_int, ctypes.c_int],
-        "ww_pair_smem_bytes": [ctypes.c_int],
+        "ww_pair_smem_bytes": [ctypes.c_int, ctypes.c_int],
         "ww_pair_forward": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                            + [ctypes.c_void_p, ctypes.c_int,
+                            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p]),
     },
     "ww_tally": {
         "ww_tally_param_count": [],
-        "ww_tally_smem_bytes": [ctypes.c_int],
+        "ww_tally_smem_bytes": [ctypes.c_int, ctypes.c_int],
         "ww_tally_forward": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_void_p]),
+                                ctypes.c_int, ctypes.c_void_p]),
     },
 }
 
@@ -122,6 +123,37 @@ _PARAM_ORDER = {
 }
 
 
+# dynamic shared memory a block may take: the 227 KB a block can hold, less
+# the kernels' < 1 KB of static shared memory; and the most that still lets
+# two blocks share an SM's 228 KB (each block reserves 1 KB beside its own)
+SMEM_BLOCK = 227 * 1024 - 1024
+SMEM_TWO_PER_SM = 228 * 1024 // 2 - 2048
+# the pass counts the kernels take: the 27-cell stencil staged whole, by
+# dx plane (9 cells a pass), by dx-dy row (3) or cell by cell
+PASSES = (1, 3, 9, 27)
+
+
+def pass_count(smem_of, W, passes=None):
+    """The number of passes a kernel stages its stencil in at W: one where
+    the whole stencil fits a block, else the fewest passes that let two
+    blocks share an SM (else the fewest that fit). ``passes`` forces a
+    count (for checks of the multi-pass path); smem_of(W, passes) gives
+    the bytes a block takes."""
+    if passes is not None:
+        if passes not in PASSES:
+            raise ValueError(f"passes must be one of {PASSES}, got {passes}")
+        if smem_of(W, passes) > SMEM_BLOCK:
+            raise ValueError(f"{passes} passes at W={W} take "
+                             f"{smem_of(W, passes)} bytes of shared memory, "
+                             f"more than a block holds ({SMEM_BLOCK})")
+        return passes
+    if smem_of(W, 1) <= SMEM_BLOCK:
+        return 1
+    fit = [n for n in PASSES[1:] if smem_of(W, n) <= SMEM_BLOCK]
+    two = [n for n in fit if smem_of(W, n) <= SMEM_TWO_PER_SM]
+    return (two or fit)[0]
+
+
 def _params(wm, style, alpha, rc):
     # python-float (float64) products rounded once to float32, as the
     # plain version's scalar constants are
@@ -137,12 +169,14 @@ def _params(wm, style, alpha, rc):
     return (ctypes.c_float * len(vals))(*vals)
 
 
-def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc):
+def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
     """The water-water block on the GPU: (e_lj, e_coul, f) with f shaped
     like wxg (3, gx, gy, gz, 3W), as tiled.forces.water_water_fast_plain.
     Launches on the current stream without synchronising. The atom pairs
     the kernel evaluated are left, as a 0-d int32 tensor on the device, in
-    ``water_water_cuda.pairs_evaluated``."""
+    ``water_water_cuda.pairs_evaluated``, and the passes it staged the
+    stencil in in ``water_water_cuda.passes`` (chosen from W by
+    pass_count; ``passes`` forces a count, for checks only)."""
     gx, gy, gz = p.grid
     G, W = p.G, p.W
     A = 3 * W
@@ -159,17 +193,14 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc):
     if not (box.is_cuda and box.dtype == torch.float32
             and box.is_contiguous() and tuple(box.shape) == (3,)):
         raise ValueError("box must be a contiguous float32 CUDA tensor (3,)")
-    # cp.async copies 16-byte pieces of every tile row
-    if W % 4 or wxg.data_ptr() % 16 or G > 65535:
-        raise ValueError(f"the kernel needs W % 4 == 0, a 16-byte aligned "
-                         f"wxg and G <= 65535 (W={W}, G={G})")
+    # cp.async copies 16-byte pieces of every tile row; a candidate is
+    # coded (segment << 8) | molecule
+    if W % 4 or W > W_MAX or wxg.data_ptr() % 16 or G > 65535:
+        raise ValueError(f"the kernel needs W % 4 == 0 and W <= {W_MAX}, a "
+                         f"16-byte aligned wxg and G <= 65535 (W={W}, "
+                         f"G={G})")
     lib = _lib("ww_pair")
-    # the staged stencil must fit the 227 KB a block can hold, beside the
-    # kernel's < 1 KB of static shared memory
-    smem = lib.ww_pair_smem_bytes(W)
-    if smem > 227 * 1024 - 1024:
-        raise ValueError(f"tile too large for the kernel's shared memory "
-                         f"(W={W}: {smem} bytes)")
+    n_pass = pass_count(lib.ww_pair_smem_bytes, W, passes)
     dev = wxg.device
     f = torch.empty_like(wxg)
     # one scratch buffer: e_out (2 floats), n_out (1 int), padding, then
@@ -181,17 +212,19 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc):
     err = lib.ww_pair_forward(
         wxg.data_ptr(), box.data_ptr(), f.data_ptr(), base + 16,
         base + 16 + 8 * nblk, base, base + 8, gx, gy, gz, W,
-        ctypes.addressof(prm), int(style == "dsf"),
+        ctypes.addressof(prm), int(style == "dsf"), n_pass,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_pair kernel launch failed: CUDA error {err}")
     water_water_cuda.launches += 1
+    water_water_cuda.passes = n_pass
     water_water_cuda.pairs_evaluated = scratch[2:3].view(torch.int32)[0]
     return scratch[0], scratch[1], f
 
 
 water_water_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
 water_water_cuda.pairs_evaluated = None   # of the last launch
+water_water_cuda.passes = None            # of the last launch
 
 
 def _tally_params(wm, style, alpha, rc):
@@ -205,13 +238,16 @@ def _tally_params(wm, style, alpha, rc):
     return (ctypes.c_float * len(vals))(*vals)
 
 
-def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc):
+def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
+                           passes=None):
     """The full-tally water-water kernel on the GPU: packed tiles wt
     (gx, gy, gz, 8, A) and box (3,) → out (gx, gy, gz, 8, A), as
     tiled.forces.water_water_tally_plain. Launches on the current stream
     without synchronising. The atom pairs the kernel evaluated are left,
     as a 0-d int32 tensor on the device, in
-    ``water_water_tally_cuda.pairs_evaluated``."""
+    ``water_water_tally_cuda.pairs_evaluated``, and the passes it staged
+    the stencil in in ``water_water_tally_cuda.passes`` (chosen from W by
+    pass_count; ``passes`` forces a count, for checks only)."""
     gx, gy, gz = p.grid
     G, W = p.G, p.W
     A = 3 * W
@@ -227,30 +263,30 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc):
     if not (box.is_cuda and box.dtype == torch.float32
             and box.is_contiguous() and tuple(box.shape) == (3,)):
         raise ValueError("box must be a contiguous float32 CUDA tensor (3,)")
-    # cp.async copies 16-byte pieces of every tile row
-    if W % 4 or wt.data_ptr() % 16 or G > 65535:
-        raise ValueError(f"the kernel needs W % 4 == 0, a 16-byte aligned "
-                         f"wt and G <= 65535 (W={W}, G={G})")
+    # cp.async copies 16-byte pieces of every tile row; a candidate is
+    # coded (offset << 8) | molecule
+    if W % 4 or W > W_MAX or wt.data_ptr() % 16 or G > 65535:
+        raise ValueError(f"the kernel needs W % 4 == 0 and W <= {W_MAX}, a "
+                         f"16-byte aligned wt and G <= 65535 (W={W}, "
+                         f"G={G})")
     lib = _lib("ww_tally")
-    # the staged stencil must fit the 227 KB a block can hold, beside the
-    # kernel's < 1 KB of static shared memory
-    smem = lib.ww_tally_smem_bytes(W)
-    if smem > 227 * 1024 - 1024:
-        raise ValueError(f"tile too large for the kernel's shared memory "
-                         f"(W={W}: {smem} bytes)")
+    n_pass = pass_count(lib.ww_tally_smem_bytes, W, passes)
     out = torch.empty_like(wt)
     count = torch.empty(1, dtype=torch.int32, device=wt.device)
     prm = _tally_params(wm, style, alpha, rc)
     err = lib.ww_tally_forward(
         wt.data_ptr(), box.data_ptr(), out.data_ptr(), count.data_ptr(),
         gx, gy, gz, W, ctypes.addressof(prm), int(style == "dsf"),
-        int(alpha > 0.0), torch.cuda.current_stream(wt.device).cuda_stream)
+        int(alpha > 0.0), n_pass,
+        torch.cuda.current_stream(wt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_tally kernel launch failed: CUDA error {err}")
     water_water_tally_cuda.launches += 1
+    water_water_tally_cuda.passes = n_pass
     water_water_tally_cuda.pairs_evaluated = count[0]
     return out
 
 
 water_water_tally_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
 water_water_tally_cuda.pairs_evaluated = None   # of the last launch
+water_water_tally_cuda.passes = None            # of the last launch

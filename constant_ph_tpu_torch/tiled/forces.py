@@ -344,6 +344,26 @@ def _roll_shift(box, grid, off, dtype):
                         for s in shifts])
 
 
+# the plain versions' dense pair blocks: a block of G·A² floats above
+# _BLOCK_WHOLE (the hewl tiles at W 208, the hard tiles padded to it) is
+# taken in runs of (x, y) cell rows of at most _BLOCK_PART, so that no
+# temporary reaches hundreds of MB; below it (the PME and campaign
+# production tiles) the block is one piece
+_BLOCK_WHOLE = 32 << 20
+_BLOCK_PART = 8 << 20
+
+
+def _row_chunks(grid, A, itemsize):
+    """Slices over the gx·gy cell rows that split a (G, A, A) block."""
+    gx, gy, gz = grid
+    rows = gx * gy
+    row_bytes = gz * A * A * itemsize
+    if rows * row_bytes <= _BLOCK_WHOLE:
+        return [slice(0, rows)]
+    step = max(1, _BLOCK_PART // row_bytes)
+    return [slice(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
 def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
                            style, alpha, rc):
     """Plain PyTorch version of the hot-path water-water block: forces +
@@ -381,10 +401,13 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
     c6x6 = 6.0 * wm.c6_OO
 
     dims = (1, 2, 3)
+    R = gx * gy
     f = torch.zeros_like(wxg)
     fO = torch.zeros_like(wxg[..., 0::3])
     e_coul = torch.zeros((), dtype=dtype, device=dev)
     e_lj = torch.zeros((), dtype=dtype, device=dev)
+    wx4 = wxg.reshape(3, R, gz, A)
+    chunks = _row_chunks(p.grid, A, wxg.element_size())
     for off in list(p.half_stencil) + [None]:
         if off is None:                                      # self tile
             xj, kqq, ljm = wxg, kqq_self, ljm_self
@@ -392,33 +415,47 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
             xj = (torch.roll(wxg, tuple(-o for o in off), dims=dims)
                   + _roll_shift(box, p.grid, off, dtype))
             kqq, ljm = kqq_nbr, None
+        xj4 = xj.reshape(3, R, gz, A)
+        # i-side and j-side sums of the whole tile, filled run by run
+        fi, fj = torch.empty_like(wx4), torch.empty_like(wx4)
+        fiO, fjO = (torch.empty_like(wx4[..., 0::3]),
+                    torch.empty_like(wx4[..., 0::3]))
+        for rows in chunks:
+            xi_r, xj_r = wx4[:, rows], xj4[:, rows]
+            dx = xi_r[..., :, None] - xj_r[..., None, :]     # (3,...,A,A)
+            r2 = torch.clamp(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2],
+                             min=R2_MIN)
+            in_rc = (r2 < rc2).to(dtype)
+            u_r, w_r, _ = _screened_coulomb(r2, style, rc, consts)
+            e_coul = e_coul + torch.sum(kqq * (u_r * in_rc))
+            hd = (kqq * (w_r * in_rc))[None] * dx
+            fi[:, rows] = torch.sum(hd, dim=-1)
+            fj[:, rows] = -torch.sum(hd, dim=-2)
 
-        def fold(fi, fj):
-            return fi + (fj if off is None
-                         else torch.roll(fj, off, dims=dims))
+            dxo = dx[..., 0::3, 0::3]                        # O-O block
+            r2o = torch.clamp(dxo[0] * dxo[0] + dxo[1] * dxo[1]
+                              + dxo[2] * dxo[2], min=R2_MIN)
+            in_rco = (r2o < rc2).to(dtype)
+            if ljm is not None:
+                in_rco = ljm * in_rco
+            inv_r2 = 1.0 / r2o
+            inv_r6 = inv_r2 * inv_r2 * inv_r2
+            e_lj = e_lj + torch.sum(
+                ((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
+                * in_rco)
+            fpd = ((c12x12 * inv_r6 - c6x6) * inv_r6 * inv_r2
+                   * in_rco)[None] * dxo
+            fiO[:, rows] = torch.sum(fpd, dim=-1)
+            fjO[:, rows] = -torch.sum(fpd, dim=-2)
 
-        dx = wxg[..., :, None] - xj[..., None, :]            # (3,...,A,A)
-        r2 = torch.clamp(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2],
-                         min=R2_MIN)
-        in_rc = (r2 < rc2).to(dtype)
-        u_r, w_r, _ = _screened_coulomb(r2, style, rc, consts)
-        e_coul = e_coul + torch.sum(kqq * (u_r * in_rc))
-        hd = (kqq * (w_r * in_rc))[None] * dx
-        f = f + fold(torch.sum(hd, dim=-1), -torch.sum(hd, dim=-2))
+        def fold(fi_, fj_):
+            fi_, fj_ = (t.reshape(t.shape[:1] + p.grid + t.shape[-1:])
+                        for t in (fi_, fj_))
+            return fi_ + (fj_ if off is None
+                          else torch.roll(fj_, off, dims=dims))
 
-        dxo = dx[..., 0::3, 0::3]                            # O-O block
-        r2o = torch.clamp(dxo[0] * dxo[0] + dxo[1] * dxo[1]
-                          + dxo[2] * dxo[2], min=R2_MIN)
-        in_rco = (r2o < rc2).to(dtype)
-        if ljm is not None:
-            in_rco = ljm * in_rco
-        inv_r2 = 1.0 / r2o
-        inv_r6 = inv_r2 * inv_r2 * inv_r2
-        e_lj = e_lj + torch.sum(
-            ((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
-            * in_rco)
-        fpd = ((c12x12 * inv_r6 - c6x6) * inv_r6 * inv_r2 * in_rco)[None] * dxo
-        fO = fO + fold(torch.sum(fpd, dim=-1), -torch.sum(fpd, dim=-2))
+        f = f + fold(fi, fj)
+        fO = fO + fold(fiO, fjO)
     f[..., 0::3] += fO
     return e_lj, e_coul, f
 
@@ -512,60 +549,76 @@ def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
     e_sh, f_sh, _, _ = coulomb_constants(style, alpha, rc)
     _, _, not_same_mol = _water_patterns(wm, p.W, dtype, dev)
     inv_l = 1.0 / box
+    gx, gy, gz = p.grid
+    wt4 = wt.reshape(gx * gy, gz, 8, A)
+    out = torch.zeros_like(wt)
+    out4 = out.view(gx * gy, gz, 8, A)
+    chunks = _row_chunks(p.grid, A, wt.element_size())
+    for k, off in enumerate(_STENCIL27):
+        tile4 = torch.roll(wt, tuple(-o for o in off),
+                           dims=(0, 1, 2)).reshape(gx * gy, gz, 8, A)
+        for rows in chunks:
+            out4[rows, ..., :6, :] += _tally_block(
+                wt4[rows], tile4[rows], k == 13, box, inv_l, rc, rc2, e_sh,
+                f_sh, alpha, style, wm, not_same_mol)
+    return out
+
+
+def _tally_block(wt, tile, self_offset, box, inv_l, rc, rc2, e_sh, f_sh,
+                 alpha, style, wm, not_same_mol):
+    """The six per-slot sums (..., 6, A) of packed tiles wt against one
+    offset's tiles ``tile`` (water_water_tally_plain)."""
+    dtype = wt.dtype
     xi = [wt[..., d, :] for d in range(3)]
     qi, lji, vi = wt[..., 3, :], wt[..., 4, :], wt[..., 5, :]
-    out = torch.zeros_like(wt)
-    for k, off in enumerate(_STENCIL27):
-        tile = torch.roll(wt, tuple(-o for o in off), dims=(0, 1, 2))
-        dx = []
-        r2 = None
-        for d in range(3):
-            dd = xi[d][..., :, None] - tile[..., d, :][..., None, :]
-            dd = dd - box[d] * torch.round(dd * inv_l[d])
-            dx.append(dd)
-            r2 = dd * dd if r2 is None else r2 + dd * dd
-        w = vi[..., :, None] * tile[..., 5, :][..., None, :]
-        if k == 13:
-            w = w * not_same_mol
-        r2 = torch.where(w > 0, torch.clamp(r2, min=R2_MIN),
-                         torch.full_like(r2, rc2 + 1.0))
-        in_rc = (r2 < rc2).to(dtype)
-        inv_r2 = 1.0 / r2
-        r = torch.sqrt(r2)
+    dx = []
+    r2 = None
+    for d in range(3):
+        dd = xi[d][..., :, None] - tile[..., d, :][..., None, :]
+        dd = dd - box[d] * torch.round(dd * inv_l[d])
+        dx.append(dd)
+        r2 = dd * dd if r2 is None else r2 + dd * dd
+    w = vi[..., :, None] * tile[..., 5, :][..., None, :]
+    if self_offset:
+        w = w * not_same_mol
+    r2 = torch.where(w > 0, torch.clamp(r2, min=R2_MIN),
+                     torch.full_like(r2, rc2 + 1.0))
+    in_rc = (r2 < rc2).to(dtype)
+    inv_r2 = 1.0 / r2
+    r = torch.sqrt(r2)
 
-        ljp = lji[..., :, None] * tile[..., 4, :][..., None, :]
-        inv_r6 = inv_r2 * inv_r2 * inv_r2
-        e_lj_p = (((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
-                  * ljp * in_rc)
-        f_lj = ((12.0 * wm.c12_OO * inv_r6 - 6.0 * wm.c6_OO) * inv_r6
-                * inv_r2 * ljp * in_rc)
-        if alpha > 0.0:
-            ar = alpha * r
-            expmx2 = torch.exp(-ar * ar)
-            erfc_ar = _erfc_pos(ar, expmx2)
-            gauss = TWO_OVER_SQRT_PI * ar * expmx2
-        else:
-            erfc_ar = torch.ones_like(r)
-            gauss = torch.zeros_like(r)
-        if style == "dsf":
-            u_r = erfc_ar / r - e_sh + f_sh * (r - rc)
-            w_r = (erfc_ar + gauss) * inv_r2 / r - f_sh / r
-        else:
-            u_r = erfc_ar / r
-            w_r = (erfc_ar + gauss) * inv_r2 / r
-        u_r = u_r * in_rc
-        w_r = w_r * in_rc
-        qj = tile[..., 3, :][..., None, :]
-        kqq = units.QQR2E * qi[..., :, None] * qj
-        fpair = f_lj + kqq * w_r
-        out[..., :6, :] += torch.stack(
-            [torch.sum(fpair * dx[0], dim=-1),
-             torch.sum(fpair * dx[1], dim=-1),
-             torch.sum(fpair * dx[2], dim=-1),
-             0.5 * torch.sum(e_lj_p, dim=-1),
-             0.5 * torch.sum(kqq * u_r, dim=-1),
-             units.QQR2E * torch.sum(qj * u_r, dim=-1)], dim=-2)
-    return out
+    ljp = lji[..., :, None] * tile[..., 4, :][..., None, :]
+    inv_r6 = inv_r2 * inv_r2 * inv_r2
+    e_lj_p = (((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
+              * ljp * in_rc)
+    f_lj = ((12.0 * wm.c12_OO * inv_r6 - 6.0 * wm.c6_OO) * inv_r6
+            * inv_r2 * ljp * in_rc)
+    if alpha > 0.0:
+        ar = alpha * r
+        expmx2 = torch.exp(-ar * ar)
+        erfc_ar = _erfc_pos(ar, expmx2)
+        gauss = TWO_OVER_SQRT_PI * ar * expmx2
+    else:
+        erfc_ar = torch.ones_like(r)
+        gauss = torch.zeros_like(r)
+    if style == "dsf":
+        u_r = erfc_ar / r - e_sh + f_sh * (r - rc)
+        w_r = (erfc_ar + gauss) * inv_r2 / r - f_sh / r
+    else:
+        u_r = erfc_ar / r
+        w_r = (erfc_ar + gauss) * inv_r2 / r
+    u_r = u_r * in_rc
+    w_r = w_r * in_rc
+    qj = tile[..., 3, :][..., None, :]
+    kqq = units.QQR2E * qi[..., :, None] * qj
+    fpair = f_lj + kqq * w_r
+    return torch.stack(
+        [torch.sum(fpair * dx[0], dim=-1),
+         torch.sum(fpair * dx[1], dim=-1),
+         torch.sum(fpair * dx[2], dim=-1),
+         0.5 * torch.sum(e_lj_p, dim=-1),
+         0.5 * torch.sum(kqq * u_r, dim=-1),
+         units.QQR2E * torch.sum(qj * u_r, dim=-1)], dim=-2)
 
 
 def water_pairs_in_cutoff_tally(wt, box, p: TileParams, rc):

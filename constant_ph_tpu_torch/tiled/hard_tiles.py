@@ -195,3 +195,22 @@ def hard_water_tiles(seed=0, grid=(3, 4, 5), W=24, cutoff=8.0):
         probes=[dict(a=(where[i][0], 3 * where[i][1] + ai),
                      b=(where[j][0], 3 * where[j][1] + bj), r=r)
                 for i, ai, j, bj, r in pairs])
+
+
+def pad_tiles(h, W):
+    """The tile set ``h`` (as hard_water_tiles returns it) at a larger
+    capacity W: every molecule keeps its cell and slot, and slots from the
+    old W on are empty. Every empty slot is parked where to_tiled parks it
+    at this W."""
+    g = h["params"]["grid"]
+    G, W0 = int(np.prod(g)), h["params"]["W"]
+    if W < W0:
+        raise ValueError(f"pad_tiles: W {W} below the tiles' {W0}")
+    wvalid = np.zeros((G, W), np.float32)
+    wvalid[:, :W0] = h["wvalid"]
+    park = PARK_BASE + PARK_SPACING * np.arange(G * W, dtype=np.float64)
+    wx = np.repeat(park, 3).reshape(1, G, 3 * W).repeat(3, axis=0)
+    live = np.repeat(wvalid > 0, 3, axis=1)                  # (G, 3W)
+    wx[:, live] = h["wx"][:, np.repeat(h["wvalid"] > 0, 3, axis=1)]
+    return dict(h, wx=wx.astype(np.float32), wvalid=wvalid,
+                params=dict(h["params"], W=W))

@@ -30,6 +30,10 @@ from constant_ph_tpu_torch.state import SystemState
 # atom, so the fast pair path needs no validity masking
 PARK_BASE = 1.0e4
 PARK_SPACING = 10.0
+# the largest tile capacity the CUDA water-water kernels take
+# (tiled/cuda_ww.py): they code a candidate as (cell << 8) | molecule in a
+# short, so W < 256, and W is a multiple of 4
+W_MAX = 252
 
 
 @dataclasses.dataclass(frozen=True)
@@ -461,6 +465,22 @@ def retile(ts: TiledSystem, tstate: TiledState, W: int):
         to_tiled(ts2, state), phi_recip_s=tstate.phi_recip_s,
         metad_v=tstate.metad_v, metad_dv=tstate.metad_dv,
         step_host=tstate.step_host)
+
+
+def retile_auto(ts: TiledSystem, tstate: TiledState, occ: int, *,
+                margin_min: int = 6):
+    """Retile to the occupancy ``occ`` plus ``margin_min`` free slots,
+    rounded up to a multiple of 4. The JAX package's retile_auto picks W
+    in [occ + margin_min, occ + margin_max] by a model of the TPU's
+    128-lane padding (_pair_cost); the port's kernels pad nothing, so the
+    port takes the smallest W. Raises when occ + margin_min exceeds
+    W_MAX, the kernels' limit."""
+    if occ + margin_min > W_MAX:
+        raise ValueError(f"occupancy {occ} + margin {margin_min} exceeds "
+                         f"W_MAX = {W_MAX}, the largest tile capacity the "
+                         "CUDA water-water kernels take; split the system "
+                         "into more cells")
+    return retile(ts, tstate, -(-(occ + margin_min) // 4) * 4)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ from constant_ph_tpu.tiled.pallas_ww import water_water_pallas_fast
 from constant_ph_tpu.tiled.shake import TiledWaterShake as JShake
 from constant_ph_tpu_torch.tiled import cuda_ww
 from constant_ph_tpu_torch.tiled import forces as tf
-from constant_ph_tpu_torch.tiled.hard_tiles import COULOMB, hard_water_tiles
+from constant_ph_tpu_torch.tiled.hard_tiles import (
+    COULOMB, hard_water_tiles, pad_tiles)
 from constant_ph_tpu_torch.tiled.layout import TileParams, WaterModel
 from constant_ph_tpu_torch.tiled.shake import TiledWaterShake
 
@@ -77,20 +78,35 @@ def test_water_water_plain_matches_xla_and_pallas(case):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("style,alpha", COULOMB,
-                         ids=[f"{s}-{a}" for s, a in COULOMB])
-def test_water_water_plain_matches_xla_on_hard_tiles(style, alpha):
+# the hard tiles at their W 24 in each Coulomb setting, and padded with
+# parked slots to W 208 (the width configs/hewl_like.json builds, where
+# the CUDA kernels stage their stencil in passes)
+HARD_WW = [(s, a, None) for s, a in COULOMB] + [("cut", 0.30, 208)]
+
+
+@pytest.mark.parametrize("style,alpha,pad", HARD_WW, ids=[
+    f"{s}-{a}" + (f"-W{w}" if w else "") for s, a, w in HARD_WW])
+def test_water_water_plain_matches_xla_on_hard_tiles(style, alpha, pad):
     """The oracle of K1's molecule cull, on the tiles that could break it
     (tiled/hard_tiles.py): stretched molecules, every box face straddled,
-    pairs at rc ± 0.005 Å, a full cell and a parked one."""
+    pairs at rc ± 0.005 Å, a full cell and a parked one. Padded to W 208,
+    the parked slots' forces are zeros and the live slots' forces and the
+    energies are those of the W 24 tiles."""
     h = hard_water_tiles()
     pr = dict(h["params"])
-    jp, tp = jl.TileParams(**pr), TileParams(**pr)
+    jp = jl.TileParams(**pr)
     kw = dict(style=style, alpha=alpha, rc=pr["cutoff"])
     g = (3,) + pr["grid"] + (3 * pr["W"],)
+    t = pad_tiles(h, pad) if pad else h
+    tp = TileParams(**t["params"])
     got = tf.water_water_fast_plain(
-        torch.as_tensor(h["wx"]).reshape(g), WaterModel(**h["water"]), tp,
-        torch.as_tensor(h["box"]), **kw)
+        torch.as_tensor(t["wx"]).reshape((3,) + tp.grid + (3 * tp.W,)),
+        WaterModel(**h["water"]), tp, torch.as_tensor(h["box"]), **kw)
+    if pad:
+        live = torch.zeros(tp.grid + (3 * tp.W,), dtype=torch.bool)
+        live[..., :3 * pr["W"]] = True
+        assert not got[2][:, ~live].any()
+        got = got[:2] + (got[2][:, live].reshape(g),)
     _assert_ww_close(got, jf.water_water_fast(
         jnp.asarray(h["wx"]).reshape(g), jl.WaterModel(**h["water"]), jp,
         jnp.asarray(h["box"]), **kw))

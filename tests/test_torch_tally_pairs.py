@@ -25,7 +25,8 @@ from constant_ph_tpu.tiled import layout as jl
 from constant_ph_tpu_torch.systems.water import water_box
 from constant_ph_tpu_torch.tiled import cuda_ww
 from constant_ph_tpu_torch.tiled import forces as tf
-from constant_ph_tpu_torch.tiled.hard_tiles import COULOMB, hard_water_tiles
+from constant_ph_tpu_torch.tiled.hard_tiles import (
+    COULOMB, hard_water_tiles, pad_tiles)
 from constant_ph_tpu_torch.tiled.layout import (
     TileParams, WaterModel, split_system, to_tiled)
 
@@ -45,8 +46,10 @@ CULL_MARGIN = _source_constant("CULL_MARGIN")
 WARPS = int(_source_constant("WARPS"))
 
 
-def _packed_hard():
+def _packed_hard(W=None):
     h = hard_water_tiles()
+    if W is not None:
+        h = pad_tiles(h, W)
     p = TileParams(**h["params"])
     wm = WaterModel(**h["water"])
     wxg = torch.as_tensor(h["wx"]).reshape((3,) + p.grid + (3 * p.W,))
@@ -191,17 +194,36 @@ def test_tally_cull_keeps_every_pair_in_cutoff():
     assert skipped_live > 2 * kept
 
 
-@pytest.mark.parametrize("style,alpha", COULOMB,
-                         ids=[f"{s}-{a}" for s, a in COULOMB])
-def test_tally_plain_matches_jax_water_water_on_hard_tiles(style, alpha):
+# the hard tiles at their W 24 in each Coulomb setting, and padded with
+# parked slots to W 208 (the width configs/hewl_like.json builds, where
+# the CUDA kernels stage their stencil in passes)
+HARD_TALLY = [(s, a, None) for s, a in COULOMB] + [("cut", 0.30, 208)]
+
+
+@pytest.mark.parametrize("style,alpha,pad", HARD_TALLY, ids=[
+    f"{s}-{a}" + (f"-W{w}" if w else "") for s, a, w in HARD_TALLY])
+def test_tally_plain_matches_jax_water_water_on_hard_tiles(style, alpha,
+                                                           pad):
     """K2's oracle on the tiles that could break its cull, against the
     JAX package's per-pair min-image block with exact erfc, at the bars
     tests/test_torch_tally.py holds these two functions to: energies rtol
     2e-4 (atol 1e-4 e_lj, 1e-3 e_coul), forces and eatom scaled by
-    max(1, |ref|max) within 2e-5, φ rtol/atol 1e-3."""
+    max(1, |ref|max) within 2e-5, φ rtol/atol 1e-3. Padded to W 208, the
+    parked slots' outputs are zeros and the live slots' are held to the
+    same JAX block on the W 24 tiles."""
     h, p, wm, wxg, wvg, box, wt = _packed_hard()
-    out = tf.water_water_tally_plain(wt, box, wm, p, style=style,
-                                     alpha=alpha, rc=p.cutoff)
+    if pad:
+        _, pp, _, _, wvp, _, wtp = _packed_hard(pad)
+        out = tf.water_water_tally_plain(wtp, box, wm, pp, style=style,
+                                         alpha=alpha, rc=p.cutoff)
+        live = torch.zeros(pp.grid + (3 * pad,), dtype=torch.bool)
+        live[..., :3 * p.W] = True
+        assert not out.movedim(-2, 0)[:, ~live].any()
+        out = out.movedim(-2, 0)[:, live].reshape(
+            (8,) + p.grid + (3 * p.W,)).movedim(0, -2)
+    else:
+        out = tf.water_water_tally_plain(wt, box, wm, p, style=style,
+                                         alpha=alpha, rc=p.cutoff)
     assert not out[..., 6:, :].any()
     # the per-slot outputs of parked slots are zeros
     parked = torch.repeat_interleave(wvg == 0, 3, dim=-1)
