@@ -76,6 +76,36 @@ available or the port's package is not beside it.
    after chunk 2 and chunks 3-4 run twice, in memory and from the file:
    bitwise equal. Gates as on the other paths; K1 and K2 timed at W 208
    and K1 at the occupancy + 6 retile (one pass).
+8. Reference path (run between the tally path and the NPT phase, on the
+   PME path's system and production state in atom order): the reference
+   Engine (padded (N, K) neighbour list, K 384 on a 7³ cell grid of 128
+   slots, pair_forces, factorized Ewald at α 0.30 and accuracy 1e-5:
+   Mx 20, My = Mz 39): the list build's time and peak memory and one
+   Ewald call's; 200 FIRE steps, then 2 warm-up and 5 measured 10-step
+   Langevin blocks (dt 2 fs, γ 0.05), sync-free. Gates: no overflow,
+   finite h_conserved, T in 250–350 K, no tile kernel launched.
+   Readings: each block end's largest displacement against skin/2, the
+   rebuilds, and the final forces from the carried list against a fresh
+   build.
+9. Tiled vs reference, forces in atom order: the DSF production state
+   (tests/test_tiled.py:56 bars: forces 3e-5 of max, e_lj and e_coul
+   rtol 2e-4, dU/dλ and f_λ rtol 5e-4 / atol 5e-3); the PME production
+   state with the tiled engine on Ewald against the reference + Ewald
+   (tests/test_tiled.py:152: Coulomb total rtol 3e-3; solute forces and
+   each water's net force within 2e-4 of max; dU/dλ rtol 1e-3 / atol
+   1e-2) and tiled PME against tiled Ewald (tests/test_tiled.py:258:
+   forces 5e-4 of max, dU/dλ rtol 2e-3 / atol 1e-2, e_kspace within
+   TOL_PME_EWALD_E).
+10. Tiled Ewald path: the PME production state on
+   TiledEngine(kspace_ep=EwaldParams, kspace_every=2), 2 warm-up and 5
+   measured 12-step blocks. Gates: K1 launches equal force evaluations,
+   Ewald called on MTS boundary steps only (its calls counted), no sync
+   in a block; then compute_Hs with use_pallas_ww=True: K2 once, the sum
+   rule within 1e-3 with k-space.
+11. Reference campaign, cut depth: make_rex_runner with 2 replicas at
+   pH 4 and 5 (one 20-step block and a swap; the pH multiset kept), and
+   calibrate_dG_ref (7 nodes × (10 + 20) steps after 100 FIRE steps;
+   finite).
 
 Every path zeroes the kernels' launch counters just before it runs and
 reads them just after; each kernel of a path must have launched once per
@@ -98,6 +128,7 @@ card's name and power limit as nvidia-smi reports them, and last
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -526,8 +557,10 @@ def profile_block(run_block, st, ms_step, block, label="profile"):
     return st
 
 
-PAIR = {"dsf": dict(cutoff=8.0, coul_style="dsf", alpha=0.2),
-        "pme": dict(cutoff=8.0, coul_style="cut", alpha=0.30)}
+# bench.py's pair settings (:128-131); the builder's skin sizes the
+# reference engine's neighbour list
+PAIR = {"dsf": dict(cutoff=8.0, skin=0.8, coul_style="dsf", alpha=0.2),
+        "pme": dict(cutoff=8.0, skin=0.8, coul_style="cut", alpha=0.30)}
 PME_MESH = dict(spacing=1.5, p=6)
 
 
@@ -655,7 +688,7 @@ def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
                            "MTS boundaries")
     if profile:
         st = profile_block(run_block, st, ms_step, block)
-    return dict(ts=ts, st=st, pme=pme, cfg=cfg, counts=counts,
+    return dict(system=sys_, ts=ts, st=st, pme=pme, cfg=cfg, counts=counts,
                 result=result, checks=checks)
 
 
@@ -808,6 +841,440 @@ def tally_path(ts, st, pme, cfg, n_blocks=4):
             > TOL_K2_K1_E_REL or hs["f_scaled_k2_k1"] > TOL_K2_K1_F_SCALED):
         raise RuntimeError(f"K2 and K1 paths disagree ({hs})")
     return st, counts, res, hs
+
+
+# the reference engine on the PME path's system: factorized Ewald at the
+# PME path's α, accuracy 1e-5 (Mx 20, My = Mz 39 on the 64 Å box);
+# 10-step blocks, a list build at each block start
+REF_EWALD = dict(alpha=0.30, accuracy=1e-5)
+REF_BLOCK = 10
+REF_LANGEVIN = dict(dt=2.0, thermostat="langevin", T=300.0,
+                    lambda_thermostat="langevin", rebuild_every=REF_BLOCK)
+# γ of the reference path's blocks (1/fs): FIRE drops the potential
+# energy below its 300 K value while the velocities stay, so at the
+# production γ 0.002 the measured blocks would run far below 250 K;
+# 0.05 hands the energy back within ~10 fs (see PERF.md §4)
+REF_GAMMA = 0.05
+# tiled PME against tiled Ewald at the 24,001-atom production state:
+# |Δe_kspace| bar in kcal/mol, set in PERF.md before the first chip run.
+# A CPU rehearsal of this script at 3,001 atoms (n_side 10, the same
+# 1.33 Å mesh spacing, Ewald at 1e-5) read 0.27 kcal/mol; scaled by N to
+# 24,001 atoms that is 2.1 (by √N, 0.75). A wrong mesh, spline or k-space
+# term is off by hundreds
+TOL_PME_EWALD_E = 10.0
+
+
+def tiled_forces_to_atoms(ts, st, fw, fs):
+    """Tile force arrays (3, G, 3W) and (Ns, 3) → (N, 3) in atom order, on
+    the tiles' device (host index arithmetic; run boundaries only)."""
+    import numpy as np
+    import torch
+
+    dev = fw.device
+    c, s = np.nonzero(st.wvalid.cpu().numpy() > 0.5)
+    m = st.wid.cpu().numpy()[c, s]
+    f = torch.zeros((ts.n_atoms, 3), dtype=fw.dtype, device=dev)
+    cols = torch.as_tensor(c, device=dev)
+    for a in range(3):
+        ids = torch.as_tensor(ts.water_atom_ids[m, a], device=dev)
+        f[ids] = fw[:, cols, torch.as_tensor(3 * s + a, device=dev)].T
+    f[torch.as_tensor(ts.solute_ids, device=dev)] = fs[:len(ts.solute_ids)]
+    return f
+
+
+def in_atom_order(system, ts, st):
+    """``system`` (an md_path's build: bench.py's solvated_acid call) with
+    the tiled state ``st`` mapped to atom order as its state."""
+    import dataclasses
+
+    from constant_ph_tpu_torch.tiled.layout import to_canonical
+
+    return dataclasses.replace(system, state=to_canonical(ts, st))
+
+
+def reference_path(system, ts, st, n_fire=200, n_warm=2, n_meas=5):
+    """The reference engine (Engine, padded neighbour lists, pair_forces,
+    factorized Ewald) on the PME main path's system and production state:
+    the list's build time and peak memory, one Ewald call, FIRE, then
+    warm-up and measured Langevin blocks, sync-free. Gates: no overflow,
+    finite h_conserved, T in 250–350 K, no host sync in a block, and no
+    launch of K1 or K2 (the path has neither). Readings: the largest
+    displacement at each block boundary (kept on the device, read after
+    the run), the blocks that ended past skin/2, and the gap between the
+    final forces from the carried list and from a fresh build. Returns
+    the engine, system, final state and list, and the numbers."""
+    import dataclasses
+
+    import torch
+
+    from constant_ph_tpu_torch import units
+    from constant_ph_tpu_torch.engine import EngineConfig
+    from constant_ph_tpu_torch.minimize import fire_minimize
+    from constant_ph_tpu_torch.neighbors import max_displacement2
+    from constant_ph_tpu_torch.ops.ewald import (
+        ewald_recip, make_ewald_params, make_kspace_fn)
+    from constant_ph_tpu_torch.profiling import cuda_ms
+
+    t_phase = time.perf_counter()
+    sys_ = in_atom_order(system, ts, st)
+    box = sys_.state.box
+    ep = make_ewald_params(box.cpu().numpy(), REF_EWALD["alpha"],
+                           accuracy=REF_EWALD["accuracy"],
+                           device=box.device)
+    cfg = EngineConfig(gamma=REF_GAMMA, seed=4, **REF_LANGEVIN)
+    eng = sys_.make_engine(cfg, kspace_fn=make_kspace_fn(ep))
+    nbp = eng.nbr_params
+    n = int(sys_.state.x.shape[0])
+    build = dict(atoms=n, K=nbp.capacity, grid=list(nbp.grid),
+                 cell_capacity=nbp.cell_capacity,
+                 stencil_cells=len(nbp.stencil), skin=nbp.skin,
+                 ewald_M=[int(ep.kx.shape[0]), int(ep.ky.shape[0]),
+                          int(ep.kz.shape[0])])
+    log(f"[reference build] {json.dumps(build)}")
+
+    # the list build and one Ewald call: time and peak memory
+    x = sys_.state.x
+    q = eng.charges(sys_.state.lam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng.build_neighbors(x, box)
+    torch.cuda.synchronize()
+    nbr_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    ewald_recip(x, q, ep)
+    torch.cuda.synchronize()
+    ewald_peak = torch.cuda.max_memory_allocated() - base
+    parts = dict(
+        nbr_build_ms=cuda_ms(lambda: eng.build_neighbors(x, box), 5),
+        nbr_peak_gib=nbr_peak / 2**30,
+        ewald_ms=cuda_ms(lambda: ewald_recip(x, q, ep), 10),
+        ewald_peak_gib=ewald_peak / 2**30)
+    log(f"[reference parts] {json.dumps(parts)}")
+
+    # -- the path: counts zeroed just before, read just after --------------
+    zero_counts()
+    t0 = time.perf_counter()
+    state, e_hist = fire_minimize(eng, sys_.state, n_fire)
+    torch.cuda.synchronize()
+    log(f"[reference minimize] {n_fire} FIRE steps: E "
+        f"{float(e_hist[0]):.1f} -> {float(e_hist[-1]):.1f} kcal/mol in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run = eng.make_run(REF_BLOCK)
+    nbr = eng.build_neighbors(state.x, state.box)
+    for _ in range(n_warm):
+        state, nbr, obs = run(state, nbr)
+    torch.cuda.synchronize()
+    d2_start, d2_end, ovs, rows = [], [], [], []
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for _ in range(n_meas):
+        d2_start.append(max_displacement2(nbr, state.x, state.box))
+        state, nbr, obs = run(state, nbr)
+        d2_end.append(max_displacement2(nbr, state.x, state.box))
+        ovs.append(nbr.overflow)
+        rows.append(obs)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    # -------------------------------------------------------------------
+
+    half2 = (0.5 * nbp.skin) ** 2
+    d_end = torch.sqrt(torch.stack(d2_end)).cpu().tolist()
+    temp = torch.cat([o.temp for o in rows])
+    h = torch.cat([o.h_conserved for o in rows])
+    # the final forces from the carried list and from a fresh build
+    f_c = eng.compute_forces(state.x, state.lam, state.box, state.pH, nbr)
+    f_f = eng.compute_forces(state.x, state.lam, state.box, state.pH,
+                             eng.build_neighbors(state.x, state.box))
+    n_steps = n_meas * REF_BLOCK
+    ms_step = wall / n_steps * 1e3
+    res = dict(
+        ms_per_step=ms_step,
+        ns_per_day=cfg.dt / units.FS_PER_NS * 86400.0 / (ms_step * 1e-3),
+        steps=n_steps, T_mean=float(temp.mean()), T_min=float(temp.min()),
+        T_max=float(temp.max()),
+        overflow=bool(torch.stack(ovs).any()),
+        h_conserved_finite=bool(torch.isfinite(h).all()),
+        rebuilds=int((torch.stack(d2_start) > half2).sum()),
+        blocks_past_half_skin=int((torch.stack(d2_end) > half2).sum()),
+        max_displacement_at_block_end=d_end,
+        half_skin=0.5 * nbp.skin,
+        carried_vs_fresh_f_scaled=float(torch.abs(f_c.f - f_f.f).max())
+        / float(torch.abs(f_f.f).max()),
+        carried_vs_fresh_e_pot=float(f_c.e_pot - f_f.e_pot),
+        lam_final=float(state.lam[0]), counts=counts)
+    log(f"[reference production] {json.dumps(res)}")
+    if counts != {"ww_pair": 0, "ww_tally": 0}:
+        raise RuntimeError("the reference path launched a tile kernel")
+    if res["overflow"] or not res["h_conserved_finite"]:
+        raise RuntimeError("reference production overflowed or went "
+                           "non-finite")
+    if not 250.0 < res["T_mean"] < 350.0:
+        raise RuntimeError(f"reference production temperature "
+                           f"{res['T_mean']} K")
+    log(f"[reference phase] {time.perf_counter() - t_phase:.1f} s")
+    return dict(eng=eng, sys=dataclasses.replace(sys_, state=state),
+                nbr=nbr, ep=ep, cfg=cfg, result=res, parts=parts)
+
+
+def tiled_vs_reference(dsf, pme, ep):
+    """Both engines' forces in atom order on the production states:
+    the DSF path's (the bars of tests/test_tiled.py:56), and the PME
+    path's with the tiled engine on Ewald against the reference engine +
+    Ewald (tests/test_tiled.py:152) and tiled PME against tiled Ewald
+    (tests/test_tiled.py:258, the e_kspace bar TOL_PME_EWALD_E)."""
+    import dataclasses
+
+    import torch
+
+    from constant_ph_tpu_torch.engine import EngineConfig
+    from constant_ph_tpu_torch.ops.ewald import make_kspace_fn
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    def rel_close(a, b, rtol, atol):
+        return (torch.abs(a - b) <= atol + rtol * torch.abs(b)).all()
+
+    t_phase = time.perf_counter()
+    out = {}
+    # DSF production state
+    ts, st = dsf["ts"], dsf["st"]
+    sys_ = in_atom_order(dsf["system"], ts, st)
+    ref = sys_.make_engine(EngineConfig(**REF_LANGEVIN))
+    s0 = sys_.state
+    nbr = ref.build_neighbors(s0.x, s0.box)
+    rf = ref.compute_forces(s0.x, s0.lam, s0.box, s0.pH, nbr)
+    tf = TiledEngine(ts, dsf["cfg"]).compute_forces(st)
+    f_t = tiled_forces_to_atoms(ts, st, tf.fw, tf.fs)
+    scale = float(torch.abs(rf.f).max())
+    d = dict(f_scaled=float(torch.abs(f_t - rf.f).max()) / scale,
+             e_lj_rel=rel(tf.e_lj, rf.e_lj),
+             e_coul_rel=rel(tf.e_coul, rf.e_coul),
+             dUdlam=[float(tf.dUdlam[0]), float(rf.dUdlam[0])],
+             overflow=bool(nbr.overflow))
+    ok = (d["f_scaled"] <= 3e-5 and d["e_lj_rel"] <= 2e-4
+          and d["e_coul_rel"] <= 2e-4 and not d["overflow"]
+          and bool(rel_close(tf.dUdlam, rf.dUdlam, 5e-4, 5e-3))
+          and bool(rel_close(tf.f_lam, rf.f_lam, 5e-4, 5e-3)))
+    out["dsf"] = d
+    log(f"[tiled vs reference dsf] {json.dumps(d)}")
+    if not ok:
+        raise RuntimeError(f"tiled and reference engines disagree on the "
+                           f"DSF production state ({d})")
+
+    # PME production state: tiled Ewald against reference + Ewald
+    ts, st = pme["ts"], pme["st"]
+    cfg1 = dataclasses.replace(pme["cfg"], kspace_every=1)
+    sys_ = in_atom_order(pme["system"], ts, st)
+    ref = sys_.make_engine(EngineConfig(**REF_LANGEVIN),
+                           kspace_fn=make_kspace_fn(ep))
+    s0 = sys_.state
+    nbr = ref.build_neighbors(s0.x, s0.box)
+    rf = ref.compute_forces(s0.x, s0.lam, s0.box, s0.pH, nbr)
+    eng_ew = TiledEngine(ts, cfg1, kspace_ep=ep)
+    tf = eng_ew.compute_forces(st)
+    f_t = tiled_forces_to_atoms(ts, st, tf.fw, tf.fs)
+    scale = float(torch.abs(rf.f).max())
+    sol = torch.as_tensor(ts.solute_ids, device=rf.f.device)
+    wat = torch.as_tensor(ts.water_atom_ids, device=rf.f.device)
+    # the reference adds the intra-water erf forces, which act along the
+    # bonds of the rigid waters (the tiled path's e_corr replaces them):
+    # the solute atoms and each water molecule's net force are free of them
+    d = dict(coul_total=[float(tf.e_coul + tf.e_kspace),
+                         float(rf.e_coul + rf.e_kspace)],
+             coul_total_rel=rel(tf.e_coul + tf.e_kspace,
+                                rf.e_coul + rf.e_kspace),
+             solute_f_scaled=float(torch.abs(f_t[sol] - rf.f[sol]).max())
+             / scale,
+             water_net_f_scaled=float(torch.abs(
+                 f_t[wat].sum(1) - rf.f[wat].sum(1)).max()) / scale,
+             water_O_f_scaled=float(torch.abs(
+                 f_t[wat[:, 0]] - rf.f[wat[:, 0]]).max()) / scale,
+             dUdlam=[float(tf.dUdlam[0]), float(rf.dUdlam[0])],
+             overflow=bool(nbr.overflow))
+    ok = (d["coul_total_rel"] <= 3e-3 and d["solute_f_scaled"] <= 2e-4
+          and d["water_net_f_scaled"] <= 2e-4 and not d["overflow"]
+          and bool(rel_close(tf.dUdlam, rf.dUdlam, 1e-3, 1e-2)))
+    out["ewald"] = d
+    log(f"[tiled vs reference ewald] {json.dumps(d)}")
+    if not ok:
+        raise RuntimeError(f"tiled Ewald and reference + Ewald disagree on "
+                           f"the PME production state ({d})")
+
+    # same state: tiled PME against tiled Ewald
+    tp = TiledEngine(ts, cfg1, kspace_ep=pme["pme"]).compute_forces(st)
+    vm = torch.repeat_interleave(st.wvalid, 3, dim=-1)[None]
+    scale = float(torch.abs(tf.fw).max())
+    d = dict(e_kspace=[float(tp.e_kspace), float(tf.e_kspace)],
+             e_kspace_abs=abs(float(tp.e_kspace) - float(tf.e_kspace)),
+             fw_scaled=float(torch.abs((tp.fw - tf.fw) * vm).max()) / scale,
+             fs_scaled=float(torch.abs(tp.fs - tf.fs).max()) / scale,
+             dUdlam=[float(tp.dUdlam[0]), float(tf.dUdlam[0])])
+    ok = (d["e_kspace_abs"] <= TOL_PME_EWALD_E and d["fw_scaled"] <= 5e-4
+          and d["fs_scaled"] <= 5e-4
+          and bool(rel_close(tp.dUdlam, tf.dUdlam, 2e-3, 1e-2)))
+    out["pme_vs_ewald"] = d
+    log(f"[tiled pme vs ewald] {json.dumps(d)}")
+    if not ok:
+        raise RuntimeError(f"tiled PME and tiled Ewald disagree ({d})")
+    log(f"[tiled vs reference phase] {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def ewald_tiled_path(ts, st, cfg, ep, n_warm=2, n_meas=5):
+    """The PME production state on TiledEngine(kspace_ep=EwaldParams,
+    kspace_every=2): warm-up and measured sync-free blocks (K1 on every
+    force evaluation, Ewald on MTS boundary steps only: its calls are
+    counted), then compute_Hs on the Ewald engine with use_pallas_ww=True
+    (K2 once) and the tally sum rule, k-space included."""
+    import dataclasses
+
+    import torch
+
+    from constant_ph_tpu_torch import units
+    from constant_ph_tpu_torch.tiled import engine as tengine
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+
+    t_phase = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, kspace_every=2, seed=5)
+    eng = TiledEngine(ts, cfg2, kspace_ep=ep)
+    block = cfg2.rebuild_every
+    run_block = eng.make_run(block)
+    ewald_xd = tengine.ewald_recip_xd
+    calls = [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return ewald_xd(*args)
+
+    # evaluations on MTS boundaries: the block start at its step counter,
+    # then one after each step
+    steps = [st.step_host + b * block + k
+             for b in range(n_warm + n_meas) for k in range(block + 1)]
+    want_calls = sum(1 for s in steps if s % 2 == 0)
+    tengine.ewald_recip_xd = counted
+    try:
+        # -- the path: counts zeroed just before, read just after ----------
+        zero_counts()
+        for _ in range(n_warm):
+            st, ov, obs = run_block(st)
+        torch.cuda.synchronize()
+        rows, ov_any = [], ov
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        for _ in range(n_meas):
+            st, ov, obs = run_block(st)
+            ov_any = ov_any | ov
+            rows.append(obs)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        # ---------------------------------------------------------------
+    finally:
+        tengine.ewald_recip_xd = ewald_xd
+    n_steps = n_meas * block
+    ms_step = wall / n_steps * 1e3
+    temp = torch.cat([o.temp for o in rows])
+    e_k = torch.cat([o.e_kspace.reshape(-1) for o in rows])
+    h_valid = torch.cat([o.h_valid.reshape(-1) for o in rows])
+    res = dict(
+        ms_per_step=ms_step,
+        ns_per_day=cfg2.dt / units.FS_PER_NS * 86400.0 / (ms_step * 1e-3),
+        steps=n_steps, T_mean=float(temp.mean()), overflow=bool(ov_any),
+        h_conserved_finite=bool(torch.isfinite(
+            torch.cat([o.h_conserved for o in rows])).all()),
+        ewald_calls=calls[0], ewald_calls_expected=want_calls,
+        kspace_rows=int((e_k != 0).sum()), h_valid_rows=int(h_valid.sum()))
+    expected = (n_warm + n_meas) * (block + 1)
+    log(f"[ewald production] {json.dumps(res)}")
+    log(f"[ewald launches] {json.dumps(counts)}, force evaluations "
+        f"{expected}")
+    if counts != {"ww_pair": expected, "ww_tally": 0}:
+        raise RuntimeError("the tiled Ewald path did not run every force "
+                           "evaluation through the CUDA kernel K1")
+    if (calls[0] != want_calls or not torch.equal(e_k != 0, h_valid)
+            or res["h_valid_rows"] != n_steps // 2):
+        raise RuntimeError(f"Ewald ran on other steps than the MTS "
+                           f"boundaries ({res})")
+    if res["overflow"] or not res["h_conserved_finite"] or not (
+            250.0 < res["T_mean"] < 350.0):
+        raise RuntimeError(f"tiled Ewald production failed its checks "
+                           f"({res})")
+
+    # compute_Hs on the Ewald engine with K2
+    eng_t = TiledEngine(ts, dataclasses.replace(cfg2, kspace_every=1),
+                        kspace_ep=ep, use_pallas_ww=True)
+    zero_counts()
+    frc = eng_t.compute_forces(st, need_tally=True)
+    HA, HB = eng_t.compute_Hs(st, frc)
+    torch.cuda.synchronize()
+    tally_counts = read_counts()
+    want = float(frc.e_lj + frc.e_coul + frc.e_bonded + frc.e_kspace
+                 - eng_t.e_corr)
+    hs = dict(HA=float(HA), HB=float(HB), e_sum=want,
+              rel_err=abs(float(HA) - want) / abs(want),
+              e_kspace=float(frc.e_kspace), counts=tally_counts)
+    log(f"[ewald compute_Hs] {json.dumps(hs)}")
+    if tally_counts != {"ww_pair": 0, "ww_tally": 1}:
+        raise RuntimeError("compute_Hs with Ewald did not run K2 once")
+    if hs["rel_err"] > 1e-3:
+        raise RuntimeError(f"Ewald compute_Hs sum rule fails ({hs})")
+    log(f"[ewald phase] {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, tally_counts=tally_counts, result=res, hs=hs)
+
+
+def reference_campaign(ref, phs=(4.0, 5.0), rex_steps=20, ti=(10, 20),
+                       n_min=100):
+    """The campaign tools on the reference engine, cut in depth, on the
+    reference path's system and Ewald: make_rex_runner with a replica a
+    pH from the final state (one block and a swap; the pH multiset kept,
+    finite, no overflow), then calibrate_dG_ref (7 nodes × ti steps after
+    n_min FIRE steps; the result finite)."""
+    import dataclasses
+
+    import torch
+
+    from constant_ph_tpu_torch.ops.ewald import make_kspace_fn
+    from constant_ph_tpu_torch.parallel import replica
+    from constant_ph_tpu_torch.titration import calibrate_dG_ref
+
+    t_phase = time.perf_counter()
+    eng, state, nbr = ref["eng"], ref["sys"].state, ref["nbr"]
+    batch = replica.stack_replicas([
+        dataclasses.replace(state, pH=torch.full_like(state.pH, ph))
+        for ph in phs])
+    nbrs = replica.stack_replicas([nbr] * len(phs))
+    gen = torch.Generator(device=state.x.device).manual_seed(9)
+    block = replica.make_rex_runner(eng, rex_steps)
+    t0 = time.perf_counter()
+    batch, nbrs, gen, acc, last = block(batch, nbrs, gen, 0)
+    torch.cuda.synchronize()
+    rex = dict(pH=batch.pH.tolist(), accepted=acc.tolist(),
+               T=last.temp.tolist(),
+               finite=bool(replica.replica_finite(batch).all()),
+               overflow=bool(nbrs.overflow.any()),
+               seconds=time.perf_counter() - t0)
+    log(f"[reference rex] {json.dumps(rex)}")
+    if (sorted(rex["pH"]) != sorted(phs) or not rex["finite"]
+            or rex["overflow"]):
+        raise RuntimeError(f"reference replica exchange failed ({rex})")
+    t0 = time.perf_counter()
+    dG = calibrate_dG_ref(ref["sys"], ref["cfg"],
+                          kspace_fn=make_kspace_fn(ref["ep"]),
+                          equil_steps=ti[0], sample_steps=ti[1],
+                          minimize_steps=n_min)
+    cal = dict(dG_ref=dG, nodes=7, steps_a_node=list(ti),
+               minimize_steps=n_min, seconds=time.perf_counter() - t0)
+    log(f"[reference calibrate] {json.dumps(cal)}")
+    if not math.isfinite(dG):
+        raise RuntimeError(f"calibrate_dG_ref gave {dG}")
+    log(f"[reference campaign phase] {time.perf_counter() - t_phase:.1f} s")
+    return dict(rex=rex, calibrate=cal)
 
 
 # the production campaign of examples/titration_metad_multisite.py: its
@@ -1588,6 +2055,12 @@ def main():
     label = f"pme-production-state-A{3 * ts56.params.W}"
     check_ww(ts56, st56, label)
     check_tally(ts56, st56, label)
+    # the reference engine and the tiled engine's Ewald branch, on the PME
+    # path's system and production state
+    ref = reference_path(pme["system"], ts, st)
+    tiled_vs_reference(dsf, pme, ref["ep"])
+    ewald = ewald_tiled_path(ts, st, pme["cfg"], ref["ep"])
+    reference_campaign(ref)
     npt = npt_path(ts, st, pme["pme"], pme["cfg"])
     camp = campaign_path(dev)
     k1c = camp["k1"]
@@ -1614,6 +2087,8 @@ def main():
              campaign_pairs_evaluated=k1c["pairs_evaluated"],
              # the NPT path (PME production state, live box): its launches
              npt_launches=npt["counts"]["ww_pair"],
+             # the tiled Ewald path (PME production state, kspace_every 2)
+             ewald_launches=ewald["counts"]["ww_pair"],
              # configs/hewl_like.json at W 208 (stencil in passes), and
              # the same state retiled to occupancy + 6 (one pass)
              hewl_launches=hewl["counts"]["ww_pair"],
@@ -1638,6 +2113,8 @@ def main():
              stencil_bound_ms=k2["stencil_bound_ms"],
              pairs_needed=k2["pairs_needed"],
              pairs_evaluated=k2["pairs_evaluated"],
+             # compute_Hs on the tiled Ewald engine
+             ewald_tally_launches=ewald["tally_counts"]["ww_tally"],
              # at W 208 on the hewl production tiles (stencil in passes)
              hewl_W=k2h["A"] // 3, hewl_passes=k2h["passes"],
              hewl_ms=k2h["ms"], hewl_plain_ms=k2h["plain_ms"],

@@ -11,7 +11,10 @@ damped-shifted-force Coulomb or smooth PME (`ops.pme`, under impulse
 MTS), plus the per-atom tally path (`compute_Hs`). The water-water pair
 blocks run as hand-written CUDA kernels on CUDA tensors — the hot path
 (`csrc/ww_pair.cu`) and the full-tally block (`csrc/ww_tally.cu`) — and
-as their plain PyTorch versions on CPU tensors.
+as their plain PyTorch versions on CPU tensors. The reference engine
+(`engine.Engine` on padded neighbour lists, `ops.pair`, factorized Ewald
+in `ops.ewald`, FIRE in `minimize`) is the oracle the tiled path is held
+to.
 
 Entry points take ``device`` (default ``"cuda"``); asking for CUDA on a
 machine without it raises instead of falling back to the CPU.

@@ -36,7 +36,8 @@ def save(path, state: SystemState, generator: torch.Generator = None):
     """Write ``state`` (and the state of ``generator``, when given) to
     ``path`` (.npz added when missing, as numpy does)."""
     leaves = {f.name: getattr(state, f.name).detach().cpu().numpy()
-              for f in dataclasses.fields(state)}
+              for f in dataclasses.fields(state)
+              if isinstance(getattr(state, f.name), torch.Tensor)}
     leaves["key"] = np.zeros((2,), np.uint32)
     if generator is not None:
         leaves[GENERATOR_LEAF] = generator.get_state().numpy()

@@ -21,7 +21,9 @@ import torch
 from constant_ph_tpu_torch import resolve_device
 from constant_ph_tpu_torch.forcefield import BondedParams
 from constant_ph_tpu_torch.lambda_dyn import LambdaSpec
+from constant_ph_tpu_torch.neighbors import NeighborList, NeighborParams
 from constant_ph_tpu_torch.ops.constraints import RigidTriatomic
+from constant_ph_tpu_torch.ops.ewald import EwaldParams
 from constant_ph_tpu_torch.ops.pme import PMEParams
 from constant_ph_tpu_torch.state import SystemState
 from constant_ph_tpu_torch.tiled.layout import (
@@ -74,7 +76,7 @@ def system_state(d: dict, device="cuda") -> SystemState:
     dropped) or a checkpoint's leaves (checkpoint.load)."""
     d = dict(d)
     for f in dataclasses.fields(SystemState):
-        if f.name in d:
+        if f.name in d or f.name == "step_host":
             continue
         if f.name not in _SCALAR_FILL_FIELDS:
             raise KeyError(
@@ -82,12 +84,54 @@ def system_state(d: dict, device="cuda") -> SystemState:
                 f"append-after-save scalar ({sorted(_SCALAR_FILL_FIELDS)}); "
                 "refusing to silently zero-fill it")
         d[f.name] = np.zeros((), np.float32)
-    return _tensors(SystemState, d, resolve_device(device))
+    return _tensors(SystemState, d, resolve_device(device),
+                    step_host=int(d["step"]))
 
 
 def tiled_state(d: dict, device="cuda") -> TiledState:
     return _tensors(TiledState, d, resolve_device(device),
                     step_host=int(d["step"]))
+
+
+def neighbor_params(d: dict) -> NeighborParams:
+    """NeighborParams from its static fields (host values only)."""
+    return NeighborParams(
+        cutoff=float(d["cutoff"]), skin=float(d["skin"]),
+        capacity=int(d["capacity"]),
+        grid=tuple(int(g) for g in d["grid"]),
+        cell_capacity=int(d["cell_capacity"]),
+        stencil=tuple(tuple(int(o) for o in off) for off in d["stencil"]),
+        use_cells=bool(d["use_cells"]))
+
+
+def neighbor_list(d: dict, device="cuda") -> NeighborList:
+    """NeighborList from idx, code (int64 on the port's side), x_ref and
+    overflow."""
+    dev = resolve_device(device)
+    return NeighborList(
+        idx=torch.as_tensor(np.asarray(d["idx"], np.int64), device=dev),
+        code=torch.as_tensor(np.asarray(d["code"], np.int64), device=dev),
+        x_ref=torch.as_tensor(np.array(d["x_ref"]), dtype=torch.float32,
+                              device=dev),
+        overflow=torch.as_tensor(bool(d["overflow"]), device=dev))
+
+
+def ewald_params(d: dict, device="cuda") -> EwaldParams:
+    """EwaldParams from its static fields (alpha, nmax, volume) and its
+    tables (kx, ky, kz, A float32; ky_idx, kz_idx int64)."""
+    dev = resolve_device(device)
+
+    def f(k):
+        return torch.as_tensor(np.array(d[k]), dtype=torch.float32,
+                               device=dev)
+
+    def i(k):
+        return torch.as_tensor(np.asarray(d[k], np.int64), device=dev)
+
+    return EwaldParams(
+        alpha=float(d["alpha"]), nmax=tuple(int(n) for n in d["nmax"]),
+        kx=f("kx"), ky=f("ky"), kz=f("kz"), A=f("A"), ky_idx=i("ky_idx"),
+        kz_idx=i("kz_idx"), volume=float(d["volume"]))
 
 
 def pme_params(d: dict, device="cuda") -> PMEParams:

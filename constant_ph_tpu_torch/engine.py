@@ -1,12 +1,46 @@
-"""Run configuration and per-step observables (port of the EngineConfig
-and Observables of constant_ph_tpu/engine.py). The reference all-pairs
-Engine is not ported yet (the reference-engine slice); the tiled engine
-is tiled/engine.TiledEngine."""
+"""The reference MD engine on padded neighbour lists, its run
+configuration and per-step observables (port of
+constant_ph_tpu/engine.py).
+
+``Engine`` composes pair forces (ops/pair.py), bonded terms, an optional
+k-space hook (ops/ewald.make_kspace_fn), extra potentials, λ-dynamics with
+exact dU/dλ, BAOAB Langevin / velocity-Verlet / NHC integration with the
+λ-RESPA inner drift, and M-SHAKE/M-RATTLE constraints. It is the semantic
+reference the tiled hot path (tiled/engine.TiledEngine) is held to.
+
+``make_run`` loops over ``rebuild_every``-step blocks in Python (the JAX
+package's lax.scan). At each block start it builds a candidate list and
+keeps it, field by field with torch.where, where the skin trigger fired
+(the JAX package's lax.cond): nothing is read back to the host, at the
+cost of one list build a block. The λ kick schedule of lambda_nevery reads
+the state's host step counter. Random numbers come from a
+``torch.Generator``: the engine's own, or one the caller passes.
+"""
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
+
+from constant_ph_tpu_torch import lambda_dyn, units
+from constant_ph_tpu_torch.forcefield import ForceField
+from constant_ph_tpu_torch.integrators import (
+    kinetic_energy,
+    langevin_o_step,
+    nhc_halfstep,
+)
+from constant_ph_tpu_torch.lambda_dyn import BiasParams, LambdaSpec
+from constant_ph_tpu_torch.neighbors import (
+    NeighborList,
+    NeighborParams,
+    build_neighbor_list,
+    needs_rebuild,
+    select,
+    stencil_offsets,
+)
+from constant_ph_tpu_torch.ops.pair import pair_forces
+from constant_ph_tpu_torch.state import SystemState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +117,354 @@ class Observables:
         return Observables(**{
             f.name: torch.stack([getattr(r, f.name) for r in rows])
             for f in dataclasses.fields(Observables)})
+
+
+def full_float32_matmuls():
+    """TF32 off and float32 matmuls at "highest": SHAKE, PME's B-spline
+    factors and the Ewald sums need full float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+@dataclasses.dataclass
+class Forces:
+    f: torch.Tensor          # (N, 3)
+    f_lam: torch.Tensor      # (S,)
+    e_lj: torch.Tensor
+    e_coul: torch.Tensor
+    e_bonded: torch.Tensor
+    e_kspace: torch.Tensor
+    e_site: torch.Tensor     # Σ bias + pH terms over sites
+    eatom: torch.Tensor      # (N,) per-atom tally
+    phi: torch.Tensor        # (N,) ∂U/∂q
+    dUdlam: torch.Tensor     # (S,)
+
+    @property
+    def e_pot(self):
+        return (self.e_lj + self.e_coul + self.e_bonded + self.e_kspace
+                + self.e_site)
+
+
+class Engine:
+    """Composes a force field (+ λ sites, bonded terms, a k-space hook and
+    extra potentials) into step and run functions.
+
+    ``bonded_fn`` (x, box) → (E, F, eatom); ``kspace_fn`` and each entry
+    of ``extra_potentials`` (x, q, box) → (E, F, φ, eatom)."""
+
+    def __init__(self, ff: ForceField, nbr_params: NeighborParams,
+                 config: EngineConfig = EngineConfig(),
+                 spec: Optional[LambdaSpec] = None,
+                 bias: BiasParams = BiasParams(),
+                 extra_potentials: tuple = (),
+                 bonded_fn: Optional[Callable] = None,
+                 kspace_fn: Optional[Callable] = None,
+                 constraints=None):
+        if config.kspace_every > 1:
+            raise ValueError(
+                "kspace_every > 1 (k-space impulse MTS) is implemented in "
+                "TiledEngine only; the reference Engine evaluates k-space "
+                "every step")
+        if config.kspace_live_box:
+            raise ValueError(
+                "kspace_live_box (NPT k-space) is implemented in "
+                "TiledEngine + PME only")
+        if config.force_cap > 0.0:
+            # the JAX package's Engine ignores the cap without a word
+            raise ValueError("force_cap is implemented in TiledEngine only")
+        full_float32_matmuls()
+        self.ff = ff
+        self.nbr_params = nbr_params
+        self.cfg = config
+        self.spec = spec
+        self.bias = bias
+        self.extra_potentials = tuple(extra_potentials)
+        self.bonded_fn = bonded_fn
+        self.kspace_fn = kspace_fn
+        self.constraints = constraints
+        self.n_constraints = (0 if constraints is None
+                              else constraints.n_constraints)
+        self.n_sites = 0 if spec is None else spec.n_sites
+        self.device = ff.mass.device
+        self.excl_idx = torch.as_tensor(ff.excl_idx, dtype=torch.int64,
+                                        device=self.device)
+        self.excl_code = torch.as_tensor(ff.excl_code, dtype=torch.int64,
+                                         device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.seed)
+        self.stencil_offsets = stencil_offsets(nbr_params, self.device)
+
+    # -- neighbour structure ----------------------------------------------
+
+    def build_neighbors(self, x, box) -> NeighborList:
+        return build_neighbor_list(x, box, self.nbr_params, self.excl_idx,
+                                   self.excl_code, self.stencil_offsets)
+
+    # -- forces -----------------------------------------------------------
+
+    def charges(self, lam):
+        if self.spec is None:
+            return self.ff.q0
+        return lambda_dyn.charges(self.ff.q0, self.spec, lam)
+
+    def compute_forces(self, x, lam, box, pH, nbr: NeighborList) -> Forces:
+        ff = self.ff
+        q = self.charges(lam)
+        pr = pair_forces(x, q, ff.type, box, nbr, ff.pair)
+        f, phi, eatom = pr.force, pr.phi, pr.eatom
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        e_bonded = e_kspace = zero
+
+        if self.bonded_fn is not None:
+            eb, fb, eatom_b = self.bonded_fn(x, box)
+            e_bonded = e_bonded + eb
+            f = f + fb
+            eatom = eatom + eatom_b
+        if self.kspace_fn is not None:
+            ek, fk, phik, eatom_k = self.kspace_fn(x, q, box)
+            e_kspace = e_kspace + ek
+            f = f + fk
+            phi = phi + phik
+            eatom = eatom + eatom_k
+        for pot in self.extra_potentials:
+            ep, fp, phip, eatom_p = pot(x, q, box)
+            e_bonded = e_bonded + ep
+            f = f + fp
+            phi = phi + phip
+            eatom = eatom + eatom_p
+
+        if self.spec is not None:
+            dUdlam = lambda_dyn.dq_dlambda_dot(self.spec, phi)
+            f_lam, u_site = lambda_dyn.lambda_force(
+                lam, dUdlam, self.spec, pH, self.cfg.T, self.bias)
+            e_site = torch.sum(u_site)
+        else:
+            dUdlam = f_lam = x.new_zeros((0,))
+            e_site = zero
+        return Forces(f=f, f_lam=f_lam, e_lj=pr.e_lj, e_coul=pr.e_coul,
+                      e_bonded=e_bonded, e_kspace=e_kspace, e_site=e_site,
+                      eatom=eatom, phi=phi, dUdlam=dUdlam)
+
+    # -- observables ------------------------------------------------------
+
+    def observe(self, state: SystemState, frc: Forces) -> Observables:
+        ke = kinetic_energy(state.v, self.ff.mass)
+        ndof = 3 * state.x.shape[0] - 3 - self.n_constraints
+        temp = 2.0 * ke / (ndof * units.BOLTZ)
+        if self.spec is not None:
+            ke_lam = lambda_dyn.lambda_kinetic(state.v_lam, self.spec)
+            temp_lam = lambda_dyn.lambda_temperature(state.v_lam, self.spec)
+        else:
+            ke_lam = temp_lam = torch.zeros_like(ke)
+        return Observables(
+            e_pot=frc.e_pot, e_lj=frc.e_lj, e_coul=frc.e_coul,
+            e_bonded=frc.e_bonded, e_kspace=frc.e_kspace, e_site=frc.e_site,
+            ke=ke, temp=temp, ke_lam=ke_lam, temp_lam=temp_lam,
+            h_conserved=frc.e_pot + ke + ke_lam - state.ext_work,
+            h_valid=torch.ones((), dtype=torch.bool, device=ke.device),
+            ext_work=state.ext_work, lam=state.lam, v_lam=state.v_lam,
+            dUdlam=frc.dUdlam)
+
+    # -- one MD step ------------------------------------------------------
+
+    def _lam_kick_scale(self, step_host: int, offset: int) -> float:
+        """Impulse-MTS λ kick factor: nevery at λ-steps, 0 otherwise,
+        decided on the host step counter."""
+        nev = self.cfg.lambda_nevery
+        if nev <= 1 or self.spec is None:
+            return 1.0
+        return float(nev) if (step_host + offset) % nev == 0 else 0.0
+
+    def _lam_drift(self, lam, v_lam, pH, h, inv_ml):
+        """λ-RESPA inner drift: lambda_inner // 2 velocity-Verlet substeps
+        against the analytic stiff force; lambda_inner == 1 is a plain
+        drift."""
+        m = self.cfg.lambda_inner // 2
+        if m <= 0 or self.spec is None:
+            return lam + h * v_lam, v_lam
+        hs = h / m
+        spec, T, bias = self.spec, self.cfg.T, self.bias
+        for _ in range(m):
+            f = lambda_dyn.analytic_lambda_force(lam, spec, pH, T, bias)
+            v_lam = v_lam + (0.5 * hs) * f * inv_ml
+            lam = lam + hs * v_lam
+            f = lambda_dyn.analytic_lambda_force(lam, spec, pH, T, bias)
+            v_lam = v_lam + (0.5 * hs) * f * inv_ml
+        return lam, v_lam
+
+    def _lam_slow_force(self, f_lam, lam, pH):
+        """Outer λ force: total minus the part the inner loop owns."""
+        if self.cfg.lambda_inner // 2 <= 0 or self.spec is None:
+            return f_lam
+        return f_lam - lambda_dyn.analytic_lambda_force(
+            lam, self.spec, pH, self.cfg.T, self.bias)
+
+    def _reflect_lam(self, lam, v_lam):
+        # folding reflection: maps any λ back into [lo, hi], velocity
+        # flipped on odd legs (torch.remainder is floor-mod, as jnp.mod)
+        lo, hi = self.cfg.lam_min, self.cfg.lam_max
+        rng = hi - lo
+        y = torch.remainder(lam - lo, 2.0 * rng)
+        odd = y > rng
+        return (torch.where(odd, 2.0 * rng - y, y) + lo,
+                torch.where(odd, -v_lam, v_lam))
+
+    def step(self, state: SystemState, frc: Forces, nbr: NeighborList,
+             generator=None):
+        """One BAOAB / velocity-Verlet / NHC step for atoms and λ; returns
+        (state', forces at its positions). Langevin noise comes from
+        ``generator`` (default: the engine's)."""
+        gen = self.generator if generator is None else generator
+        cfg = self.cfg
+        mass = self.ff.mass
+        dt = cfg.dt
+        inv_m = units.FTM2V / mass[:, None]
+        move_lam = self.spec is not None and not cfg.lambda_frozen
+        inv_ml = units.FTM2V / self.spec.m_lambda if move_lam else None
+
+        v, v_lam = state.v, state.v_lam
+        x, lam = state.x, state.lam
+        use_nhc = cfg.thermostat == "nhc"
+        nhc_xi, nhc_lam_xi = state.nhc_xi, state.nhc_lam_xi
+        ndof = 3 * x.shape[0] - 3 - self.n_constraints
+        kT = units.BOLTZ * cfg.T
+        # cumulative KE change of every thermostat operation: h_conserved
+        # stays an oracle under NHC and Langevin, not just NVE
+        ext_work = state.ext_work
+
+        if use_nhc:
+            ke2 = 2.0 * kinetic_energy(v, mass)
+            scale, nhc_xi = nhc_halfstep(nhc_xi, ke2, ndof, kT, cfg.tau, dt)
+            v = v * scale
+            ext_work = ext_work + 0.5 * ke2 * (scale * scale - 1.0)
+        if move_lam and cfg.lambda_thermostat == "nhc":
+            ke2l = 2.0 * lambda_dyn.lambda_kinetic(v_lam, self.spec)
+            scale_l, nhc_lam_xi = nhc_halfstep(
+                nhc_lam_xi, ke2l, self.n_sites, kT, cfg.lambda_tau, dt)
+            v_lam = v_lam * scale_l
+            ext_work = ext_work + 0.5 * ke2l * (scale_l * scale_l - 1.0)
+
+        # B: half kick
+        v = v + (0.5 * dt) * frc.f * inv_m
+        if move_lam:
+            k1 = self._lam_kick_scale(state.step_host, 0)
+            v_lam = v_lam + (0.5 * dt) * k1 * self._lam_slow_force(
+                frc.f_lam, state.lam, state.pH) * inv_ml
+
+        # A: half drift
+        x = x + (0.5 * dt) * v
+        if move_lam:
+            lam, v_lam = self._lam_drift(lam, v_lam, state.pH, 0.5 * dt,
+                                         inv_ml)
+
+        # O: Langevin OU; its heat is booked on constraint-projected
+        # copies (the dynamics keep the raw velocities)
+        if cfg.thermostat == "langevin":
+            def ke_p(v_):
+                if self.constraints is not None:
+                    v_ = self.constraints.velocities(x, v_, state.box)
+                return kinetic_energy(v_, mass)
+
+            ke_o0 = ke_p(v)
+            v = langevin_o_step(gen, v, mass, cfg.T, cfg.gamma, dt)
+            ext_work = ext_work + ke_p(v) - ke_o0
+        if move_lam and cfg.lambda_thermostat == "langevin":
+            kel_o0 = lambda_dyn.lambda_kinetic(v_lam, self.spec)
+            v_lam = langevin_o_step(gen, v_lam, self.spec.m_lambda, cfg.T,
+                                    cfg.lambda_gamma, dt)
+            ext_work = (ext_work
+                        + lambda_dyn.lambda_kinetic(v_lam, self.spec)
+                        - kel_o0)
+
+        # A: half drift
+        x = x + (0.5 * dt) * v
+        if move_lam:
+            lam, v_lam = self._lam_drift(lam, v_lam, state.pH, 0.5 * dt,
+                                         inv_ml)
+            lam, v_lam = self._reflect_lam(lam, v_lam)
+
+        # SHAKE positions onto the constraint manifold
+        if self.constraints is not None:
+            x, v = self.constraints.positions(state.x, x, v, state.box, dt)
+
+        frc_new = self.compute_forces(x, lam, state.box, state.pH, nbr)
+
+        # B: half kick
+        v = v + (0.5 * dt) * frc_new.f * inv_m
+        if move_lam:
+            k2 = self._lam_kick_scale(state.step_host, 1)
+            v_lam = v_lam + (0.5 * dt) * k2 * self._lam_slow_force(
+                frc_new.f_lam, lam, state.pH) * inv_ml
+
+        if use_nhc:
+            ke2 = 2.0 * kinetic_energy(v, mass)
+            scale, nhc_xi = nhc_halfstep(nhc_xi, ke2, ndof, kT, cfg.tau, dt)
+            # the thermostat's work on constraint-projected KE (the
+            # projection is linear, so it commutes with the scale)
+            ke2_p = ke2
+            if self.constraints is not None:
+                ke2_p = 2.0 * kinetic_energy(
+                    self.constraints.velocities(x, v, state.box), mass)
+            v = v * scale
+            ext_work = ext_work + 0.5 * ke2_p * (scale * scale - 1.0)
+        if move_lam and cfg.lambda_thermostat == "nhc":
+            ke2l = 2.0 * lambda_dyn.lambda_kinetic(v_lam, self.spec)
+            scale_l, nhc_lam_xi = nhc_halfstep(
+                nhc_lam_xi, ke2l, self.n_sites, kT, cfg.lambda_tau, dt)
+            v_lam = v_lam * scale_l
+            ext_work = ext_work + 0.5 * ke2l * (scale_l * scale_l - 1.0)
+
+        # RATTLE: project constraint-violating velocity components
+        if self.constraints is not None:
+            v = self.constraints.velocities(x, v, state.box)
+
+        new_state = dataclasses.replace(
+            state, x=x, v=v, lam=lam, v_lam=v_lam, step=state.step + 1,
+            step_host=state.step_host + 1, nhc_xi=nhc_xi,
+            nhc_lam_xi=nhc_lam_xi, ext_work=ext_work)
+        return new_state, frc_new
+
+    # -- run loop ---------------------------------------------------------
+
+    def make_run(self, n_steps: int):
+        """run(state, nbr, generator=None) → (state, nbr, obs): blocks of
+        ``rebuild_every`` steps (n_steps rounded up to whole blocks), the
+        list rebuilt at a block start where some atom moved more than
+        skin/2 (neighbors.needs_rebuild), obs stacked per step. Nothing is
+        read back to the host."""
+        block = self.cfg.rebuild_every
+        n_blocks = -(-n_steps // block)
+
+        def run(state: SystemState, nbr: NeighborList, generator=None):
+            rows = []
+            for _ in range(n_blocks):
+                nbr = select(
+                    needs_rebuild(nbr, state.x, state.box, self.nbr_params),
+                    self.build_neighbors(state.x, state.box), nbr)
+                frc = self.compute_forces(state.x, state.lam, state.box,
+                                          state.pH, nbr)
+                for _ in range(block):
+                    state, frc = self.step(state, frc, nbr, generator)
+                    rows.append(self.observe(state, frc))
+            return state, nbr, Observables.stack(rows)
+
+        return run
+
+    def run(self, state: SystemState, n_steps: int, nbr=None,
+            generator=None):
+        """Build the list (unless given) and run n_steps."""
+        if nbr is None:
+            nbr = self.build_neighbors(state.x, state.box)
+        return self.make_run(n_steps)(state, nbr, generator)
+
+    # -- reference-parity diagnostics -------------------------------------
+
+    def compute_Hs(self, state: SystemState, nbr, groupH_mask):
+        """HA = Σ eatom over all atoms; HB = the same without the
+        titratable-H group."""
+        frc = self.compute_forces(state.x, state.lam, state.box, state.pH,
+                                  nbr)
+        HA = torch.sum(frc.eatom)
+        HB = torch.sum(torch.where(groupH_mask, 0.0, frc.eatom))
+        return HA, HB

@@ -1,11 +1,32 @@
-"""Velocity initialisation and the Nosé–Hoover chain (port of
-constant_ph_tpu/integrators.py). The Langevin O-step lives inline in
-tiled/engine.py, which owns the random generator."""
+"""Kinetic energy, velocity initialisation, the Langevin O-step of the
+reference engine and the Nosé–Hoover chain (port of
+constant_ph_tpu/integrators.py). The tiled engine's O-step lives inline in
+tiled/engine.py. Random numbers come from the caller's torch.Generator."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from constant_ph_tpu_torch import units
+
+
+def kinetic_energy(v, mass):
+    """½ Σ m v² in kcal/mol (v in Å/fs, m in g/mol)."""
+    return 0.5 * units.MVV2E * torch.sum(mass * torch.sum(v * v, dim=-1))
+
+
+def langevin_o_step(generator: torch.Generator, v, mass, T, gamma, dt):
+    """Ornstein–Uhlenbeck exact update v ← c1·v + c2·ξ (gamma in 1/fs),
+    ξ drawn from ``generator``; v is (N, 3) with mass (N,), or has mass's
+    shape."""
+    c1 = math.exp(-gamma * dt)
+    c2 = torch.sqrt((1.0 - c1 * c1) * units.BOLTZ * T / (mass * units.MVV2E))
+    noise = torch.randn(v.shape, generator=generator, dtype=v.dtype,
+                        device=v.device)
+    if v.ndim == 2:
+        return c1 * v + c2[:, None] * noise
+    return c1 * v + c2 * noise
 
 
 def maxwell_boltzmann(generator: torch.Generator, mass, T,

@@ -1,4 +1,4 @@
-"""Shared scalar interaction kernels (used by tiled.forces).
+"""Shared scalar interaction kernels (used by ops.pair and tiled.forces).
 
 One Coulomb formula covers all styles:
 - 'cut' with α=0: plain truncation; α>0: Ewald real space (erfc), with the

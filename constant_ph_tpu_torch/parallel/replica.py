@@ -1,12 +1,13 @@
-"""pH replica exchange on the tiled engine (port of
+"""pH replica exchange on the tiled and the reference engine (port of
 constant_ph_tpu/parallel/replica.py).
 
-Replicas are stacked states: every tensor field of a TiledState gains a
-leading replica axis R (``stack_replicas``). The swap move, the health
-checks, the rollback and the metadynamics hill merge work on that stack.
-The run itself loops the engine's ``make_run`` over the replicas (the JAX
-package vmaps it), each replica drawing its Langevin noise from a
-``torch.Generator`` of its own that the runner holds.
+Replicas are stacked states: every tensor field of a TiledState or
+SystemState (and of a NeighborList) gains a leading replica axis R
+(``stack_replicas``). The swap move, the health checks, the rollback and
+the metadynamics hill merge work on that stack. The run itself loops the
+engine's ``make_run`` over the replicas (the JAX package vmaps it), each
+replica drawing its Langevin noise from a ``torch.Generator`` of its own
+that the runner holds.
 
 Swap move (even/odd alternating neighbour pairs, Metropolis): replicas
 keep their configurations and exchange pH values. The Hamiltonian depends
@@ -32,8 +33,8 @@ def _tensor_fields(state):
 
 
 def stack_replicas(states: list):
-    """Stack per-replica states (TiledState or SystemState) into one
-    batch. Fields that are not tensors (the host step counter) must agree
+    """Stack per-replica states (TiledState, SystemState or NeighborList)
+    into one batch. Fields that are not tensors (the host step counter) must agree
     across replicas and stay as they are."""
     first = states[0]
     out = {}
@@ -101,10 +102,35 @@ def swap_phs(states, generator, bias, parity, u=None):
 
 
 def make_rex_runner(engine, md_steps_per_swap: int):
-    raise NotImplementedError(
-        "replica exchange on the reference engine comes with the "
-        "reference-engine slice (ROADMAP Queue 1 item 10); use "
-        "make_rex_runner_tiled")
+    """Replica-exchange block on the reference engine:
+    block(states, nbrs, generator, parity, u=None) → (states, nbrs,
+    generator, accept, obs_last). ``states`` and ``nbrs`` are stacked
+    (stack_replicas): every replica keeps its own neighbour list. Replica
+    r's noise comes from ``block.generators[r]``, made at the first call
+    from (engine seed, r); ``generator`` draws the swap uniforms unless
+    ``u`` (R,) gives them. Nothing is read back to the host."""
+    run = engine.make_run(md_steps_per_swap)
+
+    def block(states, nbrs, generator, parity, u=None):
+        reps = unstack_replicas(states)
+        if block.generators is None:
+            block.generators = replica_generators(
+                [_fold_in(engine.cfg.seed, r) for r in range(len(reps))],
+                states.pH.device)
+        outs = [run(s, nb, g) for s, nb, g in
+                zip(reps, unstack_replicas(nbrs), block.generators)]
+        states = stack_replicas([o[0] for o in outs])
+        nbrs = stack_replicas([o[1] for o in outs])
+        obs = stack_replicas([o[2] for o in outs])          # (R, T, …)
+        states, accepted = swap_phs(states, generator, engine.bias, parity,
+                                    u=u)
+        last_obs = Observables(**{
+            f.name: getattr(obs, f.name)[:, -1]
+            for f in dataclasses.fields(Observables)})
+        return states, nbrs, generator, accepted, last_obs
+
+    block.generators = None
+    return block
 
 
 def make_rex_runner_tiled(engine, md_steps_per_swap: int,

@@ -1,7 +1,9 @@
 """SystemState: the canonical (N, 3) atom store, as a dataclass of tensors.
 
 Unlike the JAX package's state it carries no PRNG key: random numbers come
-from the engine's own ``torch.Generator`` (tiled/engine.py).
+from the engine's own ``torch.Generator`` (engine.py, tiled/engine.py). It
+carries a host copy of the step counter instead, so step-dependent choices
+never wait for the device.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ class SystemState:
     # () cumulative non-Hamiltonian energy injected by thermostats;
     # h_conserved subtracts it (engine.Observables)
     ext_work: torch.Tensor
+    # host copy of `step`, advanced with it (the λ kick schedule of
+    # lambda_nevery reads it)
+    step_host: int = 0
 
 
 def make_state(x, v=None, box=None, lam=None, v_lam=None, pH: float = 7.0,

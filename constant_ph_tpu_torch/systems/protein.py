@@ -25,6 +25,7 @@ from constant_ph_tpu_torch.forcefield import (
 )
 from constant_ph_tpu_torch.integrators import maxwell_boltzmann
 from constant_ph_tpu_torch.lambda_dyn import make_single_site, stack_sites
+from constant_ph_tpu_torch.neighbors import make_neighbor_params
 from constant_ph_tpu_torch.ops.constraints import RigidTriatomic
 from constant_ph_tpu_torch.state import make_state
 from constant_ph_tpu_torch.systems.base import System
@@ -68,9 +69,9 @@ def solvated_polypeptide(
     device="cuda",
 ) -> System:
     """The multi-site solvated system: n_residues // sites_every λ sites
-    with pK cycling through ``pKs``. ``skin`` sized the reference
-    engine's neighbour list in the JAX package, which the port does not
-    have; the tiles take theirs in split_system."""
+    with pK cycling through ``pKs``. ``skin`` sizes the reference
+    engine's neighbour list (nbr_params); the tiles take their own skin in
+    split_system."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
@@ -234,6 +235,9 @@ def solvated_polypeptide(
 
     groupH_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
     groupH_mask[[ids[3] for ids in site_atoms]] = True
-    return System(ff=ff, state=state, bonded=bonded,
+    return System(ff=ff, state=state,
+                  nbr_params=make_neighbor_params([box_len] * 3, cutoff,
+                                                  n_atoms=n, skin=skin),
+                  bonded=bonded,
                   constraints=constraints, spec=spec,
                   groupH_mask=groupH_mask)

@@ -20,6 +20,7 @@ from constant_ph_tpu_torch.forcefield import (
 )
 from constant_ph_tpu_torch.integrators import maxwell_boltzmann
 from constant_ph_tpu_torch.lambda_dyn import make_single_site
+from constant_ph_tpu_torch.neighbors import make_neighbor_params
 from constant_ph_tpu_torch.ops.constraints import RigidTriatomic
 from constant_ph_tpu_torch.state import make_state
 from constant_ph_tpu_torch.systems.base import System
@@ -85,6 +86,7 @@ def solvated_acid(
     rigid_water: bool = True,
     lambda_coupled: bool = True,
     cutoff: float = 9.0,
+    skin: float = 2.0,
     alpha: float = 0.0,
     coul_style: str = "cut",
     hmr: float = 1.0,
@@ -97,9 +99,9 @@ def solvated_acid(
 
     Layout: acid atoms [0..3], then waters; water 0 (atoms 4..6) is the
     charge-compensation buffer. One lattice site is left empty for the
-    acid. ``lambda_coupled`` scales the site's Δq (0 = uncoupled). The JAX
-    builder's ``skin`` sized the reference engine's neighbour list, which
-    the port does not have; the tiles take theirs in split_system."""
+    acid. ``lambda_coupled`` scales the site's Δq (0 = uncoupled).
+    ``skin`` sizes the reference engine's neighbour list (nbr_params); the
+    tiles take their own skin in split_system."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_wat = n_side**3 - 1
@@ -230,7 +232,10 @@ def solvated_acid(
 
     groupH_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
     groupH_mask[3] = True
-    return System(ff=ff, state=state, bonded=bonded,
+    return System(ff=ff, state=state,
+                  nbr_params=make_neighbor_params(box, cutoff, n_atoms=n,
+                                                  skin=skin),
+                  bonded=bonded,
                   constraints=constraints, spec=spec,
                   groupH_mask=groupH_mask)
 

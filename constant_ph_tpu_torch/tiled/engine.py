@@ -22,8 +22,10 @@ a block boundary whenever the block crossed a multiple of the stride
 the engine's own, or one the caller passes to ``step`` / ``run`` (one per
 replica in parallel/replica.py).
 
-Not ported yet: factorized-Ewald k-space (ops/ewald.py, the
-reference-engine slice; raises NotImplementedError naming it).
+k-space is smooth PME (``kspace_ep`` a PMEParams, also on the live box
+under NPT) or factorized Ewald (an ops.ewald.EwaldParams: every water slot
+and solute atom in one list, charges masked by validity); both run under
+``kspace_every`` impulse MTS.
 """
 from __future__ import annotations
 
@@ -34,10 +36,15 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import lambda_dyn, metad as metad_mod, units
-from constant_ph_tpu_torch.engine import EngineConfig, Observables
+from constant_ph_tpu_torch.engine import (
+    EngineConfig,
+    Observables,
+    full_float32_matmuls,
+)
 from constant_ph_tpu_torch.integrators import nhc_halfstep
 from constant_ph_tpu_torch.lambda_dyn import BiasParams
 from constant_ph_tpu_torch.ops.bonded import bonded_forces
+from constant_ph_tpu_torch.ops.ewald import ewald_recip_xd
 from constant_ph_tpu_torch.ops.pme import PMEParams, pme_recip_tiled
 from constant_ph_tpu_torch.tiled import forces as tforces
 from constant_ph_tpu_torch.tiled.layout import (
@@ -86,15 +93,9 @@ class TiledEngine:
                 "kspace_live_box requires PME: factorized-Ewald params bake "
                 "box-shaped structure-factor tables at build time; use "
                 "ops.pme.make_pme_params for NPT k-space")
-        if kspace_ep is not None and not isinstance(kspace_ep, PMEParams):
-            raise NotImplementedError(
-                "factorized-Ewald k-space (ops/ewald.py) comes with the "
-                "reference-engine slice; pass PMEParams for PME")
         if metad is not None and tsys.spec is None:
             raise ValueError("metadynamics needs titratable sites")
-        # SHAKE and the force sums need full float32 (no TF32 anywhere)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        full_float32_matmuls()
 
         self.ts = tsys
         self.cfg = config
@@ -225,7 +226,7 @@ class TiledEngine:
             # between MTS boundaries: no reciprocal force, the stale φ
             if phi_recip_prev is not None:
                 phi_recip = phi_recip_prev
-        elif self.kspace_ep is not None:
+        elif isinstance(self.kspace_ep, PMEParams):
             # an MTS boundary (or no MTS): smooth PME on the cell tiles
             vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
             wqg = (self.wq_pat[None, :] * vm_atoms).reshape(gx, gy, gz,
@@ -241,6 +242,25 @@ class TiledEngine:
                 eatom_w = eatom_w + (0.5 * wqg * phi_wk).reshape(self.G,
                                                                  3 * W)
                 eatom_s = eatom_s + 0.5 * qs_m * phi_recip
+            e_kspace = ek + self.e_corr
+        elif self.kspace_ep is not None:
+            # factorized Ewald over every water slot and solute atom:
+            # parked slots carry no charge and get no force
+            vm_atoms = torch.repeat_interleave(st.wvalid, 3,
+                                               dim=-1).reshape(-1)
+            nw = vm_atoms.shape[0]
+            q_all = torch.cat([self.wq_pat.repeat(self.G) * vm_atoms,
+                               qs * ts.solute.smask])
+            xd = tuple(torch.cat([st.wx[d].reshape(-1), st.sx[:, d]])
+                       for d in range(3))
+            ek, fk, phik, eatomk = ewald_recip_xd(xd, q_all, self.kspace_ep)
+            fwk = torch.stack([fk[d][:nw] * vm_atoms for d in range(3)])
+            fsk = torch.stack([fk[d][nw:] for d in range(3)], dim=-1)
+            fw = fw + float(k_ev) * fwk.reshape(3, self.G, 3 * W)
+            fs = fs + float(k_ev) * fsk
+            phi_recip = phik[nw:]
+            eatom_w = eatom_w + eatomk[:nw].reshape(self.G, 3 * W)
+            eatom_s = eatom_s + eatomk[nw:]
             e_kspace = ek + self.e_corr
 
         phi_s = phi_s + phi_recip

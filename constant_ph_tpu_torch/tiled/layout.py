@@ -447,6 +447,7 @@ def to_canonical(ts: TiledSystem, tstate: TiledState) -> SystemState:
         box=tstate.box, lam=tstate.lam, v_lam=tstate.v_lam,
         step=tstate.step, pH=tstate.pH, nhc_xi=tstate.nhc_xi,
         nhc_lam_xi=tstate.nhc_lam_xi, ext_work=tstate.ext_work,
+        step_host=tstate.step_host,
     )
 
 

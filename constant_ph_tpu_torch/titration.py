@@ -8,9 +8,9 @@ over frozen-λ windows,
 
     ΔG_ref = ∫₀¹ ⟨dU_elec/dλ⟩_λ dλ        (7-point Gauss–Legendre)
 
-(``calibrate_dG_ref_tiled``), or per site from one well-tempered
-λ-metadynamics run (``calibrate_dG_ref_metad``). The canonical-engine
-``calibrate_dG_ref`` comes with the reference-engine slice.
+on the tiled engine (``calibrate_dG_ref_tiled``) or the reference engine
+(``calibrate_dG_ref``), or per site from one well-tempered
+λ-metadynamics run (``calibrate_dG_ref_metad``).
 """
 from __future__ import annotations
 
@@ -88,10 +88,53 @@ def calibrate_dG_ref_tiled(
     return dG
 
 
-def calibrate_dG_ref(*args, **kwargs):
-    raise NotImplementedError(
-        "TI on the reference engine comes with the reference-engine slice "
-        "(ROADMAP Queue 1 item 10); use calibrate_dG_ref_tiled")
+def calibrate_dG_ref(
+    system,
+    cfg,
+    *,
+    bias=None,
+    site: int = 0,
+    kspace_fn=None,
+    equil_steps: int = 500,
+    sample_steps: int = 2000,
+    minimize_steps: int = 300,
+    nodes=None,
+    weights=None,
+):
+    """TI calibration on the reference engine: the system's state is
+    FIRE-minimised (``minimize_steps``), then at each node λ_site is set
+    (the other sites at 0, v_λ = 0) and held, the state equilibrates for
+    ``equil_steps`` from the minimised state and ⟨dU/dλ_site⟩ is averaged
+    over ``sample_steps``. Every node starts from the list built on the
+    minimised state; the noise comes from the engine's generator. Returns
+    ΔG_ref."""
+    from constant_ph_tpu_torch.minimize import fire_minimize
+
+    if bias is None:
+        bias = BiasParams()
+    nodes = _GL_X if nodes is None else np.asarray(nodes)
+    weights = _GL_W if weights is None else np.asarray(weights)
+
+    cfg_frozen = dataclasses.replace(cfg, lambda_frozen=True)
+    eng = system.make_engine(cfg_frozen, bias=bias, kspace_fn=kspace_fn)
+    state0 = system.state
+    if minimize_steps:
+        state0, _ = fire_minimize(eng, state0, n_steps=minimize_steps)
+    run_eq = eng.make_run(equil_steps)
+    run_samp = eng.make_run(sample_steps)
+    nbr = eng.build_neighbors(state0.x, state0.box)
+
+    means = []
+    for lam_val in nodes:
+        lam = torch.zeros_like(state0.lam)
+        lam[site] = float(lam_val)
+        st = dataclasses.replace(state0, lam=lam,
+                                 v_lam=torch.zeros_like(state0.v_lam))
+        st, _, _ = run_eq(st, nbr)
+        st, _, obs = run_samp(st, nbr)
+        means.append(torch.mean(obs.dUdlam[:, site]))
+    # one read at the end
+    return float(np.dot(weights, torch.stack(means).cpu().numpy()))
 
 
 def apply_dG_ref(spec, dG_ref):

@@ -26,9 +26,8 @@ import torch
 
 from constant_ph_tpu.engine import EngineConfig as JConfig
 from constant_ph_tpu.tiled.engine import TiledEngine as JEngine
-from constant_ph_tpu_torch import metad, titration
+from constant_ph_tpu_torch import metad
 from constant_ph_tpu_torch.engine import EngineConfig
-from constant_ph_tpu_torch.parallel import replica
 from constant_ph_tpu_torch.tiled.engine import TiledEngine
 
 from test_torch_layout import jax_tiled, port_of
@@ -115,22 +114,14 @@ def test_minimize_lowers_energy(case):
 
 def test_unported_paths_raise(case):
     _, _, tts, _ = case
-    # factorized-Ewald k-space (anything but PMEParams) waits for the
-    # reference-engine slice; a live box needs PME in any case
-    with pytest.raises(NotImplementedError, match="factorized-Ewald"):
-        TiledEngine(tts, kspace_ep=object())
+    # a live box needs PME: anything else is refused
     with pytest.raises(ValueError, match="kspace_live_box requires PME"):
         TiledEngine(tts, EngineConfig(kspace_live_box=True),
                     kspace_ep=object())
-    # the cross-device hill merges wait for the multi-GPU slice, and
-    # replica exchange / TI on the reference engine for its slice
+    # the cross-device hill merges wait for the multi-GPU slice
     for merge in (metad.make_mesh_walker_merge, metad.make_mesh_group_merge):
         with pytest.raises(NotImplementedError, match="item 12"):
             merge(None, "walk", metad.MetadParams())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        replica.make_rex_runner(None, 4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        titration.calibrate_dG_ref(None, EngineConfig())
     with pytest.raises(ValueError, match="kspace_every"):
         TiledEngine(tts, EngineConfig(kspace_every=0))
 

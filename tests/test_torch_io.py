@@ -149,6 +149,9 @@ def test_port_checkpoint_loads_in_jax_and_resumes_bitwise(tmp_path):
     checkpoint.save(path, ts, generator=torch.Generator().manual_seed(3))
     back = jckpt.load(path)
     for f in dataclasses.fields(ts):
+        if f.name == "step_host":        # the port's host copy of step
+            assert ts.step_host == int(back.step)
+            continue
         np.testing.assert_array_equal(np.asarray(getattr(back, f.name)),
                                       getattr(ts, f.name).numpy())
     assert back.key.shape == (2,) and back.key.dtype == jnp.uint32

@@ -107,10 +107,16 @@ def test_builder_matches_jax(built):
         np.testing.assert_array_equal(getattr(tsys.bonded, name).numpy(),
                                       val, err_msg=name)
     # the pure-water variant builds the same positions too
-    jw = jax_water_box(n_side=6, seed=3)
-    tw = water_box(n_side=6, seed=3, device="cpu")
+    jw = jax_water_box(n_side=6, seed=3, skin=1.0)
+    tw = water_box(n_side=6, seed=3, skin=1.0, device="cpu")
     np.testing.assert_array_equal(tw.state.x.numpy(), np.asarray(jw.state.x))
     np.testing.assert_array_equal(tw.spec.dq.numpy(), np.asarray(jw.spec.dq))
+    # the reference engine's neighbour sizing, field by field
+    for j, t in ((jsys, tsys), (jw, tw)):
+        for f in dataclasses.fields(j.nbr_params):
+            assert getattr(t.nbr_params, f.name) == getattr(j.nbr_params,
+                                                            f.name), f.name
+    assert tw.nbr_params.skin == 1.0
     # velocities come from the port's own generator: same distribution,
     # zero total momentum
     v, m = tsys.state.v, tsys.ff.mass
