@@ -76,7 +76,26 @@ available or the port's package is not beside it.
    after chunk 2 and chunks 3-4 run twice, in memory and from the file:
    bitwise equal. Gates as on the other paths; K1 and K2 timed at W 208
    and K1 at the occupancy + 6 retile (one pass).
-8. Reference path (run between the tally path and the NPT phase, on the
+8. CLI phase (``cli_path``, after the hewl phase): the port's command
+   line in-process (cli.main), files in a temporary directory, depth cut
+   through derived configs: (a) ``run`` on configs/hewl_like.json (20,241
+   atoms, W 208, K1 in 3 passes): 400 FIRE steps, 240 steps with a DCD
+   frame every 120, JSONL and a checkpoint, every chunk under
+   elastic_run's check_sync (no host sync inside a chunk), then
+   ``run`` from that checkpoint for 120 steps without FIRE (it must
+   start at the saved step, with the saved generator); (b) the same
+   system written as a LAMMPS deck and λ-site sidecar, read back by the
+   native reader with native exclusions, held to the builder's system at
+   the deck's digits (x, q0 1e-6, mass 1e-6 relative, the same triplets;
+   e_lj, e_coul, e_bonded 1e-5 relative and forces 1e-5 of max through the
+   reference engine), then ``run`` on the deck; (c) on
+   configs/glu_water.json (649 atoms, grid 1³, the plain tally path)
+   ``titrate`` rex and metad, ``calibrate`` TI, and ``calibrate`` metad,
+   which must refuse as never crossed; and the reference engine's ``run``
+   with Ewald k-space, whose first energy must be Engine +
+   make_kspace_fn's. K1 launches equal force evaluations of (a) and (b);
+   no kernel in (c).
+9. Reference path (run between the tally path and the NPT phase, on the
    PME path's system and production state in atom order): the reference
    Engine (padded (N, K) neighbour list, K 384 on a 7³ cell grid of 128
    slots, pair_forces, factorized Ewald at α 0.30 and accuracy 1e-5:
@@ -87,7 +106,7 @@ available or the port's package is not beside it.
    Readings: each block end's largest displacement against skin/2, the
    rebuilds, and the final forces from the carried list against a fresh
    build.
-9. Tiled vs reference, forces in atom order: the DSF production state
+10. Tiled vs reference, forces in atom order: the DSF production state
    (tests/test_tiled.py:56 bars: forces 3e-5 of max, e_lj and e_coul
    rtol 2e-4, dU/dλ and f_λ rtol 5e-4 / atol 5e-3); the PME production
    state with the tiled engine on Ewald against the reference + Ewald
@@ -96,13 +115,13 @@ available or the port's package is not beside it.
    1e-2) and tiled PME against tiled Ewald (tests/test_tiled.py:258:
    forces 5e-4 of max, dU/dλ rtol 2e-3 / atol 1e-2, e_kspace within
    TOL_PME_EWALD_E).
-10. Tiled Ewald path: the PME production state on
+11. Tiled Ewald path: the PME production state on
    TiledEngine(kspace_ep=EwaldParams, kspace_every=2), 2 warm-up and 5
    measured 12-step blocks. Gates: K1 launches equal force evaluations,
    Ewald called on MTS boundary steps only (its calls counted), no sync
    in a block; then compute_Hs with use_pallas_ww=True: K2 once, the sum
    rule within 1e-3 with k-space.
-11. Reference campaign, cut depth: make_rex_runner with 2 replicas at
+12. Reference campaign, cut depth: make_rex_runner with 2 replicas at
    pH 4 and 5 (one 20-step block and a swap; the pH multiset kept), and
    calibrate_dG_ref (7 nodes × (10 + 20) steps after 100 FIRE steps;
    finite).
@@ -1663,6 +1682,7 @@ HEWL_EQ = dict(dt=0.5, thermostat="langevin", T=300.0, gamma=0.01,
 HEWL_N_EQ = 800
 
 
+
 def _first_difference(a, b):
     """The name of the first tensor field in which two sequences of
     dataclasses (tiled states, Observables) differ, or None when they are
@@ -1840,6 +1860,403 @@ def hewl_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, n_min=None,
                                  f"hewl-production-state-W{ts_o.params.W}")
     tmp.cleanup()
     log(f"[hewl] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+CLI_HEWL = dict(n_min=400, steps=240, every=120, restart_steps=120)
+GLU_CONFIG = "configs/glu_water.json"
+DECK_TYPES = [6, 7]          # hewl's water O and H types, 1-based
+# the reference engine's force parity of a deck-built system against its
+# builder's, as tests/test_data_roundtrip.py:65-102 holds them
+DECK_TOL = dict(x=1e-6, q0=1e-6, mass_rel=1e-6, e_rel=1e-5, f_scaled=1e-5)
+
+
+def _cli(argv):
+    """constant_ph_tpu_torch.cli.main(argv) in-process: returns (the last
+    stdout line parsed as JSON, stderr's text); both are logged."""
+    import contextlib
+    import io
+
+    from constant_ph_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli.main(argv)
+    for line in err.getvalue().splitlines():
+        log(f"  {line}")
+    last = out.getvalue().strip().splitlines()[-1]
+    log(f"  {last}")
+    return json.loads(last), err.getvalue()
+
+
+class _ElasticProbe:
+    """Wraps tiled.elastic.elastic_run while a CLI command runs (the CLI
+    imports it at call time): on the card it runs with check_sync, so a
+    production chunk that synchronises with the host raises; it records
+    each call's tile shape, steps, chunk and retiles, and its wall time
+    between two synchronisations (the production chunks with their DCD
+    and checkpoint writes)."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.sync = torch.cuda.synchronize if dev == "cuda" else (
+            lambda: None)
+        self.check_sync = dev == "cuda"
+        self.calls = []
+
+    def __enter__(self):
+        from constant_ph_tpu_torch.tiled import elastic
+
+        self.orig = elastic.elastic_run
+
+        def wrapped(ts, tst, cfg, n_steps, **kw):
+            # on the card every chunk must run without a host sync
+            kw["check_sync"] = self.check_sync
+            self.sync()
+            t0 = time.perf_counter()
+            out = self.orig(ts, tst, cfg, n_steps, **kw)
+            self.sync()
+            blk = cfg.rebuild_every
+            chunk = -(-kw.get("chunk", 2000) // blk) * blk
+            self.calls.append(dict(
+                wall=time.perf_counter() - t0, steps=n_steps, chunk=chunk,
+                grid=list(ts.params.grid), W=ts.params.W,
+                atoms=ts.n_atoms, retiles=out[3].n_retiles,
+                check_sync=kw["check_sync"],
+                evals=(-(-n_steps // chunk) + out[3].n_retiles)
+                * -(-chunk // blk) * (blk + 1)))
+            return out
+
+        elastic.elastic_run = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from constant_ph_tpu_torch.tiled import elastic
+
+        elastic.elastic_run = self.orig
+
+
+def _k1_passes(dev, W):
+    """The passes K1 stages its stencil in at W (None off the card)."""
+    if dev != "cuda":
+        return None
+    from constant_ph_tpu_torch.tiled import cuda_ww
+
+    return cuda_ww.pass_count(cuda_ww._lib("ww_pair").ww_pair_smem_bytes, W)
+
+
+def _write_json(path, obj):
+    with open(path, "w") as fh:
+        json.dump(obj, fh)
+    return path
+
+
+def _deck_parity(built, deck_sys):
+    """A deck-built System against the builder's: coordinates, charges,
+    masses and constraint triplets, then the reference engine's energies
+    and forces on both at the builder's λ."""
+    import numpy as np
+    import torch
+
+    from constant_ph_tpu_torch.engine import EngineConfig
+
+    def h(t):
+        return t.double().cpu().numpy()
+
+    res = dict(
+        x=float(np.abs(h(deck_sys.state.x) - h(built.state.x)).max()),
+        q0=float(np.abs(h(deck_sys.ff.q0) - h(built.ff.q0)).max()),
+        mass_rel=float((np.abs(h(deck_sys.ff.mass) - h(built.ff.mass))
+                        / h(built.ff.mass)).max()),
+        triplets_equal=bool(torch.equal(deck_sys.constraints.triplets.cpu(),
+                                        built.constraints.triplets.cpu())))
+    cfg = EngineConfig(dt=1.0, thermostat="nve", lambda_thermostat="none",
+                       rebuild_every=10)
+    frc = []
+    for s in (built, deck_sys):
+        eng = s.make_engine(cfg)
+        nbr = eng.build_neighbors(s.state.x, s.state.box)
+        frc.append((eng.compute_forces(s.state.x, built.state.lam,
+                                       s.state.box, s.state.pH, nbr),
+                    bool(nbr.overflow)))
+    (f1, ov1), (f2, ov2) = frc
+    for name in ("e_lj", "e_coul", "e_bonded"):
+        a, b = float(getattr(f1, name)), float(getattr(f2, name))
+        res[name] = [a, b]
+        res[f"{name}_rel"] = abs(b - a) / max(abs(a), 1e-30)
+    fa, fb = h(f1.f), h(f2.f)
+    res["f_scaled"] = float(np.abs(fb - fa).max() / max(1.0,
+                                                         np.abs(fa).max()))
+    res["overflow"] = ov1 or ov2
+    ok = (res["x"] <= DECK_TOL["x"] and res["q0"] <= DECK_TOL["q0"]
+          and res["mass_rel"] <= DECK_TOL["mass_rel"]
+          and res["triplets_equal"] and not res["overflow"]
+          and res["f_scaled"] <= DECK_TOL["f_scaled"]
+          and all(res[f"{n}_rel"] <= DECK_TOL["e_rel"]
+                  for n in ("e_lj", "e_coul", "e_bonded")))
+    return res, ok
+
+
+def _finite(obj):
+    """Every number in a JSON value is finite."""
+    if isinstance(obj, dict):
+        return all(_finite(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(_finite(v) for v in obj)
+    if isinstance(obj, (int, float)):
+        return math.isfinite(obj)
+    return True
+
+
+def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
+             n_min=CLI_HEWL["n_min"], steps=CLI_HEWL["steps"],
+             every=CLI_HEWL["every"],
+             restart_steps=CLI_HEWL["restart_steps"]):
+    """The port's command line, in-process through cli.main, with every
+    file in a temporary directory and depth cut through derived configs.
+
+    (a) ``run`` on ``config`` (hewl_like.json: 20,241 atoms, grid 4³, W
+    208, K1 in 3 passes): its minimize_steps, ``steps`` steps with a DCD
+    frame every ``every``, a checkpoint and JSONL observables, the chunks
+    under elastic_run's check_sync (``_ElasticProbe``); then ``run``
+    again from that checkpoint for ``restart_steps`` steps without
+    minimisation. (b) The same system
+    written by write_lammps_data / write_sites_json, read back by the
+    native reader (parity with the builder's system at the deck's printed
+    digits, through the reference engine's forces), and ``run`` on the
+    deck (builder lammps_data). (c) ``titrate`` (rex, metad) and
+    ``calibrate`` (TI; metad must refuse as never crossed) on ``glu``
+    (649 atoms, grid 1³: the plain tally path, no kernel), and the
+    reference engine's ``run`` with Ewald k-space against Engine +
+    make_kspace_fn. Counts zeroed just before each command and read just
+    after; K1 must have launched once per force evaluation of (a) and
+    (b). Smaller configs and depths only serve a rehearsal on the CPU."""
+    import tempfile
+
+    import torch
+
+    from constant_ph_tpu_torch import checkpoint, cli
+    from constant_ph_tpu_torch.forcefield import build_exclusions
+    from constant_ph_tpu_torch.ops.ewald import make_kspace_fn
+    from constant_ph_tpu_torch.systems import lammps_data as ld
+    from constant_ph_tpu_torch.tiled.layout import split_system, to_tiled
+    from constant_ph_tpu_torch.trajectory import read_dcd
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    dev_args = [] if dev == "cuda" else ["--device", dev]
+    with open(config) as fh:
+        conf = json.load(fh)
+    blk = conf["engine"]["rebuild_every"]
+    fire_evals = -(-n_min // blk) * blk
+    out = dict(launches={}, res={})
+
+    def command(argv, probe_label, expect_kernel=True, fire=0):
+        """One CLI command with the counts zeroed before and read after;
+        K1 once per force evaluation (FIRE's plus the probed runs')."""
+        zero_counts()
+        with _ElasticProbe(dev) as probe:
+            summary, err = _cli(argv + dev_args)
+        counts = read_counts()
+        evals = fire + sum(c["evals"] for c in probe.calls)
+        want = {"ww_pair": evals if expect_kernel else 0, "ww_tally": 0}
+        log(f"[cli {probe_label} launches] {json.dumps(counts)}, force "
+            f"evaluations {evals}; runs {json.dumps(probe.calls)}")
+        if counts != want:
+            raise RuntimeError(f"cli {probe_label}: launches {counts}, "
+                               f"expected {want}")
+        return summary, err, probe.calls, counts["ww_pair"]
+
+    # -- (a) run on the config, then a restart from its checkpoint --------
+    paths = {k: os.path.join(d, f) for k, f in (
+        ("dcd", "hewl.dcd"), ("ckpt", "hewl_ckpt.npz"),
+        ("jsonl", "hewl_obs.jsonl"), ("ckpt2", "hewl_ckpt2.npz"),
+        ("jsonl2", "hewl_obs2.jsonl"))}
+    run_a = dict(conf["run"], minimize_steps=n_min, steps=steps,
+                 trajectory=paths["dcd"], traj_every=every,
+                 checkpoint=paths["ckpt"], output=paths["jsonl"])
+    cfg_a = _write_json(os.path.join(d, "hewl_run.json"),
+                        dict(conf, run=run_a))
+    t0 = time.perf_counter()
+    summary, err, calls, n_a = command(["run", cfg_a],
+                                       "hewl run", fire=fire_evals)
+    wall = time.perf_counter() - t0
+    prod = calls[0]
+    got = dict(atoms=prod["atoms"], sites=None, grid=prod["grid"],
+               W=prod["W"])
+    frames, _ = read_dcd(paths["dcd"])
+    with open(paths["jsonl"]) as fh:
+        n_rows = sum(1 for _ in fh)
+    gen = torch.Generator(device=dev)
+    saved = checkpoint.load(paths["ckpt"], dev, generator=gen)
+    build = dict(conf["system"])
+    build.pop("builder")
+    system = cli._build_system(dict(conf["system"]), dev)
+    ts = split_system(system, device=dev)
+    got["sites"] = ts.spec.n_sites
+    waters = int(to_tiled(ts, saved).wvalid.sum())
+    res_a = dict(
+        summary=summary, command_s=wall, production_s=prod["wall"],
+        ms_per_step=prod["wall"] / steps * 1e3, shape=got,
+        passes=_k1_passes(dev, got["W"]),
+        dcd_frames=int(frames.shape[0]), dcd_atoms=int(frames.shape[1]),
+        jsonl_rows=n_rows, ckpt_step=int(saved.step),
+        ckpt_finite=bool(torch.isfinite(saved.x).all()
+                         and torch.isfinite(saved.v).all()),
+        waters=waters, n_waters=len(ts.water_atom_ids))
+    log(f"[cli hewl run] {json.dumps(res_a)}")
+    if shape is not None and (got != shape
+                              or res_a["passes"] not in (None, 3)):
+        raise RuntimeError(f"cli hewl run on {got} in {res_a['passes']} "
+                           f"passes, expected {shape} in 3")
+    if not (_finite(summary) and summary["steps"] == steps
+            and res_a["dcd_frames"] == steps // every
+            and res_a["dcd_atoms"] == prod["atoms"]
+            and n_rows == -(-steps // run_a["observe_every"])
+            and res_a["ckpt_step"] == steps and res_a["ckpt_finite"]
+            and waters == res_a["n_waters"]):
+        raise RuntimeError(f"cli hewl run failed its checks ({res_a})")
+
+    run_r = dict(conf["run"], minimize_steps=0, steps=restart_steps,
+                 restart=paths["ckpt"], checkpoint=paths["ckpt2"],
+                 output=paths["jsonl2"])
+    cfg_r = _write_json(os.path.join(d, "hewl_restart.json"),
+                        dict(conf, run=run_r))
+    summary_r, err_r, calls_r, n_r = command(
+        ["run", cfg_r], "hewl restart")
+    resumed = checkpoint.load(paths["ckpt2"], dev)
+    res_r = dict(summary=summary_r, ckpt_step=int(resumed.step),
+                 ms_per_step=calls_r[0]["wall"] / restart_steps * 1e3,
+                 restarted_at=f"at step {steps}" in err_r,
+                 generator_restored="no generator state" not in err_r)
+    log(f"[cli hewl restart] {json.dumps(res_r)}")
+    if not (_finite(summary_r) and res_r["restarted_at"]
+            and res_r["generator_restored"]
+            and res_r["ckpt_step"] == steps + restart_steps):
+        raise RuntimeError(f"cli restart failed its checks ({res_r})")
+    out["launches"]["run"] = n_a + n_r
+    out["res"]["run"], out["res"]["restart"] = res_a, res_r
+
+    # -- (b) the deck written from the same system -------------------------
+    deck, sidecar = os.path.join(d, "hewl.data"), os.path.join(d,
+                                                              "hewl.json")
+    t0 = time.perf_counter()
+    ld.write_lammps_data(deck, system)
+    ld.write_sites_json(sidecar, system)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ld.read_lammps_data(deck)
+    t_read = time.perf_counter() - t0
+    reader = ld.read_lammps_data.last_reader
+    deck_kw = dict(rigid_water_types=DECK_TYPES, cutoff=build["cutoff"],
+                   coul_style=build["coul_style"], alpha=build["alpha"],
+                   pH=build["pH"])
+    t0 = time.perf_counter()
+    deck_sys = ld.system_from_deck(deck, sites_json=sidecar, device=dev,
+                                   **deck_kw)
+    t_build = time.perf_counter() - t0
+    excl_path = build_exclusions.last_path
+    parity, ok = _deck_parity(system, deck_sys)
+    res_b = dict(write_s=t_write, read_s=t_read, build_s=t_build,
+                 deck_mb=os.path.getsize(deck) / 2**20, reader=reader,
+                 exclusions=excl_path, parity=parity)
+    log(f"[cli deck] {json.dumps(res_b)}")
+    if not ok or reader != "native" or excl_path != "native":
+        raise RuntimeError(f"cli deck failed its checks ({res_b})")
+    del deck_sys
+    run_b = dict(conf["run"], minimize_steps=n_min, steps=steps)
+    run_b.pop("output", None)
+    cfg_b = _write_json(os.path.join(d, "deck_run.json"), dict(
+        conf, system=dict(builder="lammps_data", path=deck,
+                          sites_json=sidecar, **deck_kw), run=run_b))
+    summary_b, _, calls_b, n_b = command(["run", cfg_b],
+                                         "deck run", fire=fire_evals)
+    shape_b = dict(atoms=calls_b[0]["atoms"], sites=got["sites"],
+                   grid=calls_b[0]["grid"], W=calls_b[0]["W"])
+    res_b.update(summary=summary_b, shape=shape_b,
+                 ms_per_step=calls_b[0]["wall"] / steps * 1e3)
+    log(f"[cli deck run] {json.dumps(res_b)}")
+    if not (_finite(summary_b) and shape_b == got):
+        raise RuntimeError(f"cli deck run failed its checks ({res_b})")
+    out["launches"]["deck"] = n_b
+    out["res"]["deck"] = res_b
+    del system
+
+    # -- (c) titrate and calibrate on the small box; the Ewald repair -----
+    with open(glu) as fh:
+        gconf = json.load(fh)
+    gconf["engine"]["rebuild_every"] = 5
+    gconf["run"] = {k: v for k, v in gconf["run"].items()
+                    if k not in ("checkpoint", "output")}
+    cfg_c = _write_json(os.path.join(d, "glu.json"), dict(
+        gconf, run=dict(gconf["run"], steps=250, minimize_steps=50,
+                        steps_per_swap=10, n_swaps=2)))
+    t0 = time.perf_counter()
+    rex, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6"], "titrate rex",
+                           expect_kernel=False)
+    met, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6", "--method",
+                            "metad"], "titrate metad", expect_kernel=False)
+    ti, _, _, _ = command(["calibrate", cfg_c, "--equil", "20",
+                           "--window-equil", "10", "--samples", "20"],
+                          "calibrate ti", expect_kernel=False)
+    try:
+        command(["calibrate", cfg_c, "--equil", "20", "--samples", "400",
+                 "--method", "metad"], "calibrate metad",
+                expect_kernel=False)
+        refused = False
+    except RuntimeError as err:
+        refused = "never crossed" in str(err)
+        log(f"  refused: {str(err)[:100]}")
+    fracs = rex["deprotonated_fraction"] + met["deprotonated_fraction"]
+    res_c = dict(
+        rex_keys=sorted(rex), metad_keys=sorted(met), ti_keys=sorted(ti),
+        fractions=fracs, metad_refused=refused,
+        finite=_finite([rex, met, ti]),
+        seconds=time.perf_counter() - t0)
+    log(f"[cli titrate] {json.dumps(res_c)}")
+    if not (res_c["rex_keys"] == sorted(
+                ["pH", "deprotonated_fraction", "hh_reference",
+                 "swap_acceptance"])
+            and res_c["metad_keys"] == sorted(
+                ["method", "pH", "deprotonated_fraction", "per_site",
+                 "hh_reference", "steps"])
+            and res_c["ti_keys"] == sorted(
+                ["dG_ref", "lambda_nodes", "dUdlam_profile"])
+            and met["steps"] == 250 and res_c["finite"] and refused
+            and all(0.0 <= f <= 1.0 for f in fracs)):
+        raise RuntimeError(f"cli titrate/calibrate failed ({res_c})")
+
+    # the reference engine's run with Ewald k-space (real space 'cut' at
+    # the same α): its first energy against Engine + make_kspace_fn
+    ks = dict(style="ewald", alpha=0.3, accuracy=1e-5)
+    esys = dict(gconf["system"], coul_style="cut", alpha=ks["alpha"])
+    obs_path = os.path.join(d, "ewald_obs.jsonl")
+    cfg_e = dict(gconf, system=esys, kspace=ks,
+                 run=dict(steps=20, minimize_steps=0, observe_every=1,
+                          tiled=False, output=obs_path))
+    summary_e, _, _, _ = command(
+        ["run", _write_json(os.path.join(d, "ewald.json"), cfg_e)],
+        "ewald run", expect_kernel=False)
+    with open(obs_path) as fh:
+        row = json.loads(fh.readline())
+    rsys = cli._build_system(dict(esys), dev)
+    ecfg, bias, ep = cli._make_engines(cfg_e, rsys)
+    gen = torch.Generator(device=dev).manual_seed(ecfg.seed)
+    ref = rsys.make_engine(ecfg, bias=bias, kspace_fn=make_kspace_fn(ep)).run(
+        rsys.state, ecfg.rebuild_every, generator=gen)[2]
+    res_e = dict(e_pot=[row["e_pot"], float(ref.e_pot[0])],
+                 e_kspace=[row["e_kspace"], float(ref.e_kspace[0])],
+                 summary_finite=_finite(summary_e))
+    log(f"[cli ewald] {json.dumps(res_e)}")
+    if not (e_close(*res_e["e_pot"]) and e_close(*res_e["e_kspace"])
+            and abs(row["e_kspace"]) > 1.0 and res_e["summary_finite"]):
+        raise RuntimeError(f"cli Ewald run failed its checks ({res_e})")
+    out["res"]["titrate"], out["res"]["ewald"] = res_c, res_e
+    tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[cli] phase {out['seconds']:.1f} s")
     return out
 
 
@@ -2066,6 +2483,7 @@ def main():
     k1c = camp["k1"]
     hewl = hewl_path(dev)
     k1h, k2h, k1o = hewl["k1"], hewl["k2"], hewl["k1_occ"]
+    cli = cli_path(dev)
     k1_errs = [c["f_abs_err"] for c in dsf["checks"] + pme["checks"]
                + [k1, k1c, k1h, k1o]]
     kernels = [
@@ -2101,7 +2519,11 @@ def main():
              hewl_occupancy_passes=k1o["passes"],
              hewl_occupancy_ms=k1o["ms"],
              hewl_occupancy_bound_ms=k1o["bound_ms"],
-             hewl_occupancy_pairs_evaluated=k1o["pairs_evaluated"]),
+             hewl_occupancy_pairs_evaluated=k1o["pairs_evaluated"],
+             # the CLI's run (and restart) on configs/hewl_like.json, and
+             # its run on the LAMMPS deck written from that system
+             cli_launches=cli["launches"]["run"],
+             deck_launches=cli["launches"]["deck"]),
         dict(name="ww_tally", route="cuda",
              source="constant_ph_tpu_torch/csrc/ww_tally.cu",
              replaces="constant_ph_tpu/tiled/pallas_ww.py:88",

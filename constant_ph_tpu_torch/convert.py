@@ -19,13 +19,18 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import resolve_device
-from constant_ph_tpu_torch.forcefield import BondedParams
+from constant_ph_tpu_torch.forcefield import (
+    BondedParams,
+    ForceField,
+    PairParams,
+)
 from constant_ph_tpu_torch.lambda_dyn import LambdaSpec
 from constant_ph_tpu_torch.neighbors import NeighborList, NeighborParams
 from constant_ph_tpu_torch.ops.constraints import RigidTriatomic
 from constant_ph_tpu_torch.ops.ewald import EwaldParams
 from constant_ph_tpu_torch.ops.pme import PMEParams
 from constant_ph_tpu_torch.state import SystemState
+from constant_ph_tpu_torch.systems.base import System
 from constant_ph_tpu_torch.tiled.layout import (
     SoluteTables,
     TiledState,
@@ -150,6 +155,61 @@ def pme_params(d: dict, device="cuda") -> PMEParams:
         **{k: torch.as_tensor(np.array(d[k]), dtype=torch.float32,
                               device=dev)
            for k in ("Ahat", "box", "binv", "nx", "ny", "nzr")})
+
+
+def pair_params(d: dict, device="cuda") -> PairParams:
+    """PairParams from its tables (c12, c6, e_shift, special_lj,
+    special_coul) and static fields (cutoff, coul_cutoff, alpha,
+    coul_style)."""
+    dev = resolve_device(device)
+
+    def f(k):
+        return torch.as_tensor(np.array(d[k]), dtype=torch.float32,
+                               device=dev)
+
+    return PairParams(
+        c12=f("c12"), c6=f("c6"), e_shift=f("e_shift"),
+        cutoff=float(d["cutoff"]), coul_cutoff=float(d["coul_cutoff"]),
+        alpha=float(d["alpha"]), coul_style=str(d["coul_style"]),
+        special_lj=f("special_lj"), special_coul=f("special_coul"))
+
+
+def force_field(d: dict, device="cuda") -> ForceField:
+    """ForceField from mass, q0, type, the "pair" and "bonded" sub-dicts
+    and the exclusion tables (kept as host int32 arrays)."""
+    dev = resolve_device(device)
+    return ForceField(
+        mass=torch.as_tensor(np.array(d["mass"]), dtype=torch.float32,
+                             device=dev),
+        q0=torch.as_tensor(np.array(d["q0"]), dtype=torch.float32,
+                           device=dev),
+        type=torch.as_tensor(np.asarray(d["type"], np.int64), device=dev),
+        pair=pair_params(d["pair"], dev),
+        bonded=bonded_params(d["bonded"], dev),
+        excl_idx=np.asarray(d["excl_idx"], np.int32),
+        excl_code=np.asarray(d["excl_code"], np.int32))
+
+
+def system(d: dict, device="cuda") -> System:
+    """A whole System from {"ff", "state", "nbr_params"} and the optional
+    "bonded", "spec", "constraints" and "groupH_mask" (each may be None).
+    "constraints" holds the rigid-water "triplets", the per-atom
+    "masses", "d01" and "d12"."""
+    dev = resolve_device(device)
+    c = d.get("constraints")
+    gh = d.get("groupH_mask")
+    return System(
+        ff=force_field(d["ff"], dev),
+        state=system_state(d["state"], dev),
+        nbr_params=neighbor_params(d["nbr_params"]),
+        bonded=(None if d.get("bonded") is None
+                else bonded_params(d["bonded"], dev)),
+        constraints=None if c is None else RigidTriatomic(
+            c["triplets"], np.asarray(c["masses"]), float(c["d01"]),
+            float(c["d12"]), device=dev),
+        spec=None if d.get("spec") is None else lambda_spec(d["spec"], dev),
+        groupH_mask=(None if gh is None else
+                     torch.as_tensor(np.array(gh, bool), device=dev)))
 
 
 def tiled_system(d: dict, device="cuda") -> TiledSystem:

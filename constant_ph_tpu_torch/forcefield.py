@@ -1,5 +1,7 @@
 """Force-field parameters as dataclasses of tensors (port of
-constant_ph_tpu/forcefield.py; exclusions are built on the Python path)."""
+constant_ph_tpu/forcefield.py). Exclusions come from the port's native
+C++ builder (native/topology.cpp) where g++ is available, else from the
+Python walk of the bond graph."""
 from __future__ import annotations
 
 import dataclasses
@@ -101,7 +103,58 @@ class ForceField:
 
 
 def build_exclusions(n_atoms: int, bonds, *, max_excl: int = 16):
-    """1-2/1-3/1-4 special-pair tables (host numpy) from the bond graph."""
+    """1-2/1-3/1-4 special-pair tables (host numpy, int32) from the bond
+    graph: the native builder (the JAX package's order: partners in the
+    order its walk first reaches them, grouped by code) when g++ is on
+    PATH, else the Python one (partners sorted by id within each code).
+    The two hold the same (partner, code) set in every row. The path taken
+    is recorded in ``build_exclusions.last_path`` ("native" or
+    "python"). A bond naming an atom outside [0, n_atoms) raises (the C++
+    builder would write out of bounds; Python would wrap a negative id)."""
+    bonds = np.asarray(bonds, dtype=np.int64).reshape(-1, 2)
+    if bonds.size and (bonds.min() < 0 or bonds.max() >= n_atoms):
+        raise ValueError(f"bond atom index out of range [0, {n_atoms}): "
+                         f"{int(bonds.min())}..{int(bonds.max())}")
+    out = _build_exclusions_native(n_atoms, bonds, max_excl)
+    build_exclusions.last_path = "native"
+    if out is None:
+        out = _build_exclusions_python(n_atoms, bonds, max_excl)
+        build_exclusions.last_path = "python"
+    return out
+
+
+build_exclusions.last_path = None
+
+
+def _build_exclusions_native(n_atoms: int, bonds, max_excl: int):
+    """The C++ builder (None without g++)."""
+    import ctypes
+
+    from constant_ph_tpu_torch.native.build import load_library
+
+    lib = load_library("topology")
+    if lib is None:
+        return None
+    bonds = np.ascontiguousarray(np.asarray(bonds, dtype=np.int64)
+                                 .reshape(-1, 2))
+    excl_idx = np.full((n_atoms, max_excl), -1, dtype=np.int64)
+    excl_code = np.zeros((n_atoms, max_excl), dtype=np.int64)
+    lib.build_exclusions.restype = ctypes.c_int64
+    ret = lib.build_exclusions(
+        ctypes.c_int64(n_atoms), ctypes.c_int64(bonds.shape[0]),
+        bonds.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(max_excl),
+        excl_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        excl_code.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if ret != 0:
+        raise ValueError(
+            f"exclusion capacity {max_excl} exceeded (need {ret}); "
+            "raise max_excl")
+    return excl_idx.astype(np.int32), excl_code.astype(np.int32)
+
+
+def _build_exclusions_python(n_atoms: int, bonds, max_excl: int):
+    """The pure-Python builder (no toolchain; the tests' oracle)."""
     adj: list[set[int]] = [set() for _ in range(n_atoms)]
     for i, j in np.asarray(bonds, dtype=np.int64).reshape(-1, 2):
         adj[i].add(int(j))

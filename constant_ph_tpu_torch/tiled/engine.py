@@ -636,6 +636,8 @@ class TiledEngine:
                 e_hist.append(e)
             st = dataclasses.replace(st, wv=torch.zeros_like(st.wv),
                                      sv=torch.zeros_like(st.sv))
+            if not e_hist:                  # n_steps 0, as JAX's (0,)
+                return st, torch.zeros(0, dtype=dtype, device=dev)
             return st, torch.stack(e_hist)
 
         return minimize

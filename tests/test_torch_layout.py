@@ -193,28 +193,6 @@ def _perturbed(jst, jts, fill_cell):
     return jst.replace(wx=jnp.asarray(wx.reshape(3, G, 3 * W)))
 
 
-@pytest.mark.parametrize("fill_cell", [False, True])
-def test_rebin_slot_for_slot(built, fill_cell):
-    _, jts, jst, _ = built
-    jst = _perturbed(jst, jts, fill_cell)
-    tts, tst = port_of(jts, jst)
-    jnew, jov = jl.rebin(jst, jts.params)
-    tnew, tov = tl.rebin(tst, tts.params)
-    assert bool(tov) == bool(jov) == fill_cell
-    assert_same_tiles(jnew, tnew)
-    assert int(tnew.wvalid.sum()) == len(jts.water_atom_ids)
-
-
-def test_retile_matches(built):
-    _, jts, jst, _ = built
-    tts, tst = port_of(jts, jst)
-    W = int(np.asarray(jst.wvalid).sum(axis=1).max()) + 4
-    jts2, jst2 = jl.retile(jts, jst, W)
-    tts2, tst2 = tl.retile(tts, tst, W)
-    assert tts2.params.W == jts2.params.W
-    assert_same_tiles(jst2, tst2)
-
-
 def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         assert solvated_acid(n_side=3).state.x.is_cuda

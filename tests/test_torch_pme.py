@@ -29,18 +29,13 @@ own on another worker.
 import dataclasses
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from constant_ph_tpu.engine import EngineConfig as JConfig
 from constant_ph_tpu.ops import pme as jpme
-from constant_ph_tpu.tiled.engine import TiledEngine as JEngine
 from constant_ph_tpu_torch import convert
-from constant_ph_tpu_torch.engine import EngineConfig
 from constant_ph_tpu_torch.ops import pme as tpme
-from constant_ph_tpu_torch.tiled.engine import TiledEngine
 
 from test_torch_layout import fields_dict, jax_tiled, port_of
 
@@ -161,38 +156,3 @@ def test_pme_float32_against_float64(case):
     np.testing.assert_allclose(float(got[0]), float(ref[0]), rtol=1e-6)
     for g, r, name in zip(got[1:], ref[1:], ("fw", "fs", "phi_s", "phi_w")):
         _scaled_close(g.double().numpy(), r.numpy(), 3e-4, name)
-
-
-@pytest.mark.parametrize("need_tally", [False, True],
-                         ids=["hot-path", "tally"])
-def test_engine_pme_compute_forces_and_Hs(case, need_tally):
-    jts, jst, tts, tst, jpp, tpp = case
-    jeng = JEngine(jts, JConfig(**NVE), kspace_ep=jpp)
-    teng = TiledEngine(tts, EngineConfig(**NVE), kspace_ep=tpp)
-    ref = jax.jit(lambda s: jeng.compute_forces(s, need_tally=need_tally))(
-        jst)
-    got = teng.compute_forces(tst, need_tally=need_tally)
-    assert teng.e_corr == jeng.e_corr
-    names = ["fw", "fs", "f_lam", "phi_s", "dUdlam", "phi_recip_s"]
-    if need_tally:
-        names += ["eatom_w", "eatom_s"]
-    for name in names:
-        _scaled_close(getattr(got, name).numpy(), getattr(ref, name),
-                      2.5e-4, name)
-    e_atol = _e_atol(jts, jst)
-    for name in ("e_lj", "e_coul", "e_bonded", "e_kspace", "e_site",
-                 "e_pot"):
-        np.testing.assert_allclose(float(getattr(got, name)),
-                                   float(getattr(ref, name)), rtol=2e-5,
-                                   atol=e_atol, err_msg=name)
-    if need_tally:
-        jHA, jHB = jax.jit(jeng.compute_Hs)(jst, ref)
-        HA, HB = teng.compute_Hs(tst, got)
-        np.testing.assert_allclose(float(HA), float(jHA), rtol=2e-5,
-                                   atol=e_atol)
-        np.testing.assert_allclose(float(HB), float(jHB), rtol=2e-5,
-                                   atol=e_atol)
-        # the tallies add up to the energy (the bar of tests/test_tiled.py)
-        want = float(got.e_lj + got.e_coul + got.e_bonded + got.e_kspace
-                     - teng.e_corr)
-        np.testing.assert_allclose(float(HA), want, rtol=1e-3)

@@ -25,28 +25,18 @@ Tolerances, from the float32 differences measured on the CPU:
   the bars of tests/test_torch_engine.py (scaled 3e-6, energies rtol 1e-5
   / atol 1e-4; measured ≤ 1.4e-6 scaled).
 """
-import functools
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from constant_ph_tpu.engine import EngineConfig as JConfig
-from constant_ph_tpu.systems.water import solvated_acid as jax_solvated_acid
 from constant_ph_tpu.tiled import forces as jf
-from constant_ph_tpu.tiled import layout as jl
-from constant_ph_tpu.tiled import pallas_ww
-from constant_ph_tpu.tiled.engine import TiledEngine as JEngine
 from constant_ph_tpu.tiled.pallas_ww import (
     pack_water_tiles as jax_pack,
     water_water_pallas,
 )
-from constant_ph_tpu_torch.engine import EngineConfig
-from constant_ph_tpu_torch.tiled import cuda_ww
 from constant_ph_tpu_torch.tiled import forces as tf
-from constant_ph_tpu_torch.tiled.engine import TiledEngine
 
 from test_torch_layout import jax_tiled, port_of
 
@@ -144,30 +134,6 @@ def test_k2_plain_matches_pallas_and_tally_path(case):
                                float(got[0] + got[1]), rtol=1e-5)
 
 
-def test_k2_wrapper_refuses_cpu_tensors_and_small_grids(case):
-    style, alpha, _, _, tts, tst = case
-    p = tts.params
-    wt = tf.pack_water_tiles(*_grids(tst, p, tst.wx), tts.water, p)
-    kw = dict(style=style, alpha=alpha, rc=tts.cutoff)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda_ww.water_water_tally_cuda(wt, tst.box, tts.water, p, **kw)
-    small = type(p)(grid=(2, 4, 4), W=p.W, half_stencil=p.half_stencil,
-                    cutoff=p.cutoff, skin=p.skin)
-    with pytest.raises(ValueError, match="grid >= 3"):
-        tf.water_water_tally_plain(wt[:2], tst.box, tts.water, small, **kw)
-    with pytest.raises(ValueError, match="grid >= 3"):
-        cuda_ww.water_water_tally_cuda(wt[:2], tst.box, tts.water, small,
-                                       **kw)
-
-
-def test_water_intra_ewald_correction(case):
-    _, _, jts, _, tts, _ = case
-    n = len(jts.water_atom_ids)
-    for alpha in (0.2, 0.3, 0.35):
-        assert tf.water_intra_ewald_correction(tts.water, n, alpha) == \
-            jf.water_intra_ewald_correction(jts.water, n, alpha)
-
-
 def _engine_close(got, ref, names, f_atol, e_rtol, e_atol):
     for name in names:
         r = np.asarray(getattr(ref, name))
@@ -178,52 +144,3 @@ def _engine_close(got, ref, names, f_atol, e_rtol, e_atol):
         np.testing.assert_allclose(float(getattr(got, name)),
                                    float(getattr(ref, name)), rtol=e_rtol,
                                    atol=e_atol, err_msg=name)
-
-
-def test_engine_tally_and_compute_Hs(case, monkeypatch):
-    _, _, jts, jst, tts, tst = case
-    jeng = JEngine(jts, JConfig(**NVE))
-    ref = jax.jit(lambda s: jeng.compute_forces(s, need_tally=True))(jst)
-    jHA, jHB = jax.jit(jeng.compute_Hs)(jst, ref)
-    names = ("fw", "fs", "f_lam", "phi_s", "dUdlam", "eatom_w", "eatom_s")
-    # need_tally on the plain tally path (water_water + water_solute)
-    teng = TiledEngine(tts, EngineConfig(**NVE))
-    got = teng.compute_forces(tst, need_tally=True)
-    _engine_close(got, ref, names, 3e-6, 1e-5, 1e-4)
-    HA, HB = teng.compute_Hs(tst)
-    np.testing.assert_allclose(float(HA), float(jHA), rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(float(HB), float(jHB), rtol=1e-5, atol=1e-4)
-    # use_pallas_ww=True: K2 on every evaluation, tallies or not; the JAX
-    # engine's Pallas kernel runs in interpret mode on the CPU
-    monkeypatch.setattr(pallas_ww, "water_water_pallas", functools.partial(
-        water_water_pallas, interpret=True))
-    jk = JEngine(jts, JConfig(**NVE), use_pallas_ww=True)
-    keng = TiledEngine(tts, EngineConfig(**NVE), use_pallas_ww=True)
-    for tally in (False, True):
-        ref = jax.jit(lambda s: jk.compute_forces(s, need_tally=tally))(jst)
-        got = keng.compute_forces(tst, need_tally=tally)
-        _engine_close(got, ref, names, 3e-6, 1e-5, 1e-4)
-    HA, HB = keng.compute_Hs(tst, got)
-    jHA, jHB = jax.jit(jk.compute_Hs)(jst, ref)
-    np.testing.assert_allclose(float(HA), float(jHA), rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(float(HB), float(jHB), rtol=1e-5, atol=1e-4)
-    want = float(got.e_lj + got.e_coul + got.e_bonded)
-    np.testing.assert_allclose(float(HA), want, rtol=1e-5)
-
-
-def test_grid_below_three_takes_tally_path():
-    """A 12.8 Å box gives one cell: K1 and K2 need grid ≥ 3, so the engine
-    resets use_pallas_ww and runs water_water with per-pair min image."""
-    sys_ = jax_solvated_acid(n_side=4, spacing=3.2, rigid_water=True,
-                             lambda_coupled=True, cutoff=6.0, skin=1.0,
-                             coul_style="dsf", alpha=0.2, seed=5, pH=5.0)
-    jts = jl.split_system(sys_, skin=1.0)
-    assert jts.params.grid == (1, 1, 1)
-    jst = jl.to_tiled(jts, sys_.state)
-    tts, tst = port_of(jts, jst)
-    ref = jax.jit(JEngine(jts, JConfig(**NVE)).compute_forces)(jst)
-    teng = TiledEngine(tts, EngineConfig(**NVE), use_pallas_ww=True)
-    assert teng.use_pallas_ww is False
-    got = teng.compute_forces(tst)
-    _engine_close(got, ref, ("fw", "fs", "f_lam", "phi_s", "dUdlam"), 3e-6,
-                  1e-5, 1e-4)
