@@ -22,18 +22,42 @@ available or the port's package is not beside it.
    (the hard tiles, the PME and campaign production tiles, W 208), they
    must give bitwise the same outputs; every K2 check also requires that
    K2 evaluated at least twice the atom pairs inside rc (each is computed
-   from both of its atoms). Past W_MAX both wrappers must refuse.
+   from both of its atoms). Past W_MAX both wrappers must refuse. Both
+   kernels also take a batch of replicas as their grid's z dimension: a
+   batch of two hard tile sets (seeds 0 and 1, the second in a box 0.5 %
+   longer) in one launch of each, at W 24 and padded to W 208 (K1 3
+   passes, K2 9), must give each set bitwise its own launch's forces,
+   energies, tallies and pair counts.
 2. DSF path (the ``entry()`` configuration): solvated_acid (n_side=20,
    DSF rc=8 Å, α=0.2, HMR 3, pH 5) → split_system(skin=0.8,
    tile_safety=1.72) → 400 FIRE steps → 800 Langevin equilibration steps
-   → retile to the measured occupancy → 2 warm-up and 5 measured
-   sync-free production blocks (dt 2 fs, λ Langevin, rebuild_every 12).
+   → retile to the measured occupancy + 8 free slots (PROD_MARGIN)
+   → 2 warm-up and 5 measured
+   sync-free production blocks (dt 2 fs, rebuild_every 12, λ Langevin at
+   the production driver's γ 0.05 /fs and walls ±0.12, LAMBDA_2FS).
+   Gates: K1 launches equal force evaluations, no overflow, finite
+   h_conserved, T in 250-350 K, the mean λ temperature T_lam_mean ≤
+   T_LAM_MAX (3,000 K), no host sync in a block.
 3. PME main path (the ``bench.py`` default) at the same 24,001 atoms:
    'cut' Coulomb α=0.30 rc=8 Å, PME mesh spacing 1.5, p=6 (48³);
    400 FIRE + 800 equilibration steps at kspace_every=1, retile, then 2
    warm-up and 10 measured 12-step production blocks at kspace_every=2
    (impulse MTS), sync-free. PME must run on boundary steps only, and the
-   card's pme_recip_tiled is held against the same call on the CPU.
+   card's pme_recip_tiled is held against the same call on the CPU. K1
+   on a batch of six of the path's block-end states in one launch, and
+   K2 on two: bitwise each state's own launch, each within its plain
+   version's bars, timed from a CUDA graph (batch_graph_ms) beside R ×
+   the single bound (the pairs inside rc summed over the states).
+3b. PME REX block (``pme_rex_path``, the JAX package's
+   __graft_entry__.py:185-225 leg at full width): R = 4 replicas of the
+   PME production state at pH 4.0–4.75 with a frozen metadynamics bias
+   (one hill each), one 12-step block through make_rex_runner_tiled with
+   K1 and one with use_pallas_ww=True (K2). Gates: one launch a batched
+   force evaluation (13 each), no host sync, the pH multiset kept; one
+   batched force evaluation on a k-space boundary and one off it (each
+   replica on its own carried φ) against a CPU copy of the engine within
+   5e-4 of max (e_kspace 1e-5 relative), and the off-boundary λ forces
+   of each replica within 1e-5 of max of its single evaluation.
 4. Tally path on the PME production tiles: blocks with
    TiledEngine(use_pallas_ww=True) (K2 on every force evaluation), the
    compute_Hs sum rule, K2 against K1 through compute_forces, and the
@@ -52,21 +76,32 @@ available or the port's package is not beside it.
    a frozen bias with each rung's hills merged by deposit_many, (b) a
    48-step chunk with in-run deposits on a walker per rung, (c) one
    replica-exchange block with a swap, (d) a poisoned replica flagged by
-   replica_healthy and rolled back bit for bit, (e) the estimators. Gates:
-   K1 launches equal force evaluations, every hill landed (table mass),
+   replica_healthy and rolled back bit for bit, (e) the estimators. The
+   walkers are one batch: (a) and (c) move all six, (b) its three, with
+   one run call and one K1 launch a force evaluation. Gates: K1 launches
+   equal batched force evaluations, every hill landed (table mass),
    same-rung tables equal, ext_work moved by ΣΔV, the pH multiset kept, no
    overflow, finite h_conserved, T in 250–350 K, fractions in [0, 1], and
-   no synchronisation inside the run blocks. Measured: ms per
-   walker-step, K1 on the campaign tiles (time, bound, pairs), the
-   water×solute and solute×solute blocks at Ns 600 (time, memory), and
-   one campaign block under torch.profiler.
+   no synchronisation inside the run blocks. Then one 12-step block of
+   the six from one state, batched and looped, with generators of the
+   same seeds: λ within 1e-4, positions 1e-3 Å, h_conserved 1e-4
+   relative (TOL_BATCH_LOOP); and one 48-step chunk at R = 9 (the
+   production driver's default, pH 3.0–7.0 in 0.5 steps), its K1
+   launches, no overflow, T. Measured: ms per walker-step at R = 6 (the
+   production, and the batched and looped block) and R = 9, peak GiB,
+   K1 on the campaign tiles alone and on the six walkers in one launch
+   (time, bound, pairs), the water×solute and solute×solute blocks at Ns
+   600 (time, memory, also water×solute on the six), and a batched block
+   at R = 6 and at R = 9 under torch.profiler (idle share, device ops).
 6. NPT phase on the PME production state: tiled.npt.npt_elastic_run at 1
-   atm with the live-box PME, 4 chunks of 48 steps with an MC volume move
-   after each, and make_pressure_fn once. Gates: K1 launches equal force
-   evaluations (2 a move), the box within the ±4 % drift guard, a move's
-   result is the state the next chunk starts from (redone bit for bit),
-   rigid water kept through a move, a finite pressure, no host sync in a
-   chunk, and the baked-box engine refused.
+   atm with the live-box PME, 4 chunks of 48 steps at the PME path's
+   settings (dt 2 fs) with an MC volume move after each, and
+   make_pressure_fn once. Gates: K1 launches
+   equal force evaluations (2 a move), the box within the ±4 % drift
+   guard, a move's result is the state the next chunk starts from (redone
+   bit for bit), rigid water kept through a move, a finite pressure, no
+   host sync in a chunk, T_lam_mean ≤ T_LAM_MAX, and the baked-box engine
+   refused.
 7. hewl phase: configs/hewl_like.json (solvated_polypeptide, 20,241
    atoms, 16 sites, grid 4³, W 208) as the JAX CLI's tiled run drives it:
    400 FIRE steps at W 208 (K1 in passes), 800 relaxation steps, then
@@ -90,8 +125,9 @@ available or the port's package is not beside it.
    e_lj, e_coul, e_bonded 1e-5 relative and forces 1e-5 of max through the
    reference engine), then ``run`` on the deck; (c) on
    configs/glu_water.json (649 atoms, grid 1³, the plain tally path)
-   ``titrate`` rex and metad, ``calibrate`` TI, and ``calibrate`` metad,
-   which must refuse as never crossed; and the reference engine's ``run``
+   ``titrate`` rex and metad (its walkers one batch: one run call of
+   both a chunk), ``calibrate`` TI, and ``calibrate`` metad, which must
+   refuse as never crossed; and the reference engine's ``run``
    with Ewald k-space, whose first energy must be Engine +
    make_kspace_fn's. K1 launches equal force evaluations of (a) and (b);
    no kernel in (c).
@@ -358,6 +394,193 @@ def check_ww_tiles(wxg, wm, p, box, label, *, style, alpha, rc,
     return res
 
 
+def check_ww_batch(wxs, boxes, wm, p, label, *, style, alpha, rc,
+                   timing=True):
+    """K1 on a batch of R distinct tile sets (wxs (3, gx, gy, gz, A) and
+    boxes (3,) each) in one launch against R single launches: forces,
+    energies and pair counts bitwise equal, and each replica's single
+    launch within the bars of its plain version in float64, where float64
+    r² sorts the pairs in or out of rc. Only the pairs within 1e-3 Å² of
+    rc² may sit on the other side in K1's float32 (the 'cut' style steps
+    there): each atom's share of such a pair counts wholly in or wholly
+    out, as K1 chose (settle_rc_pairs). With ``timing``, the batched launch's
+    device time (CUDA graph) beside a single launch's, and the batch's
+    bound: R × the single bound, from the pairs inside rc summed over
+    the replicas. Returns the numbers."""
+    import torch
+
+    from constant_ph_tpu_torch.profiling import graph_ms
+    from constant_ph_tpu_torch.tiled import cuda_ww, forces
+
+    kw = dict(style=style, alpha=alpha, rc=rc)
+    R = len(wxs)
+    wxb = torch.stack(wxs).contiguous()
+    boxb = torch.stack(boxes).contiguous()
+
+    def batched():
+        return cuda_ww.water_water_cuda(wxb, wm, p, boxb, **kw)
+
+    got = batched()
+    n_b = cuda_ww.water_water_cuda.pairs_evaluated.clone()
+    passes = cuda_ww.water_water_cuda.passes
+    e_rel = f_scaled = f_raw = 0.0
+    band_pairs, other_side, by_replica = [], [], []
+    for r in range(R):
+        one = cuda_ww.water_water_cuda(wxs[r], wm, p, boxes[r], **kw)
+        n_1 = cuda_ww.water_water_cuda.pairs_evaluated
+        if not (all(torch.equal(a[r], b) for a, b in zip(got, one))
+                and torch.equal(n_b[r:r + 1], n_1)):
+            raise RuntimeError(f"{label}: K1 on the batch differs from K1 "
+                               f"on replica {r} alone")
+        ref = forces.water_water_fast_plain(wxs[r].double(), wm, p,
+                                            boxes[r].double(), **kw)
+        scale = max(1.0, float(torch.abs(ref[2]).max()))
+        diff = {"f": one[2].double() - ref[2],
+                "e": torch.stack([one[0].double() - ref[0],
+                                  one[1].double() - ref[1]])}
+        f_raw = max(f_raw, float(diff["f"].abs().max()) / scale)
+        pairs = rc_band_pairs(wxs[r], p, boxes[r], wm, **kw)
+        band_pairs.append(len(pairs))
+        other_side.append(settle_rc_pairs(diff, {"f": scale}, pairs,
+                                          k1_pair_terms))
+        by_replica.append(float(diff["f"].abs().max()) / scale)
+        f_scaled = max(f_scaled, by_replica[-1])
+        e = [float(ref[i]) for i in (0, 1)]
+        if not all(e_close(e[i] + float(diff["e"][i]), e[i])
+                   for i in (0, 1)):
+            raise RuntimeError(f"{label}: replica {r} energies off the "
+                               "plain version's")
+        e_rel = max(e_rel, *(abs(float(diff["e"][i])) / abs(e[i])
+                             for i in (0, 1)))
+    G, A = p.G, 3 * p.W
+    res = dict(label=label, R=R, G=G, A=A, style=style, passes=passes,
+               bitwise_batch=True, e_rel_err=e_rel, f_scaled_err=f_scaled,
+               f_scaled_err_raw=f_raw, f_scaled_err_by_replica=by_replica,
+               pairs_at_rc=band_pairs, pairs_other_side=other_side,
+               pairs_evaluated=n_b.tolist())
+    if timing:
+        needed = [int(forces.water_pairs_in_cutoff(wxs[r], p, boxes[r], rc))
+                  for r in range(R)]
+        res["batch_graph_ms"] = graph_ms(batched, 50)
+        res["single_graph_ms"] = graph_ms(lambda: cuda_ww.water_water_cuda(
+            wxs[0], wm, p, boxes[0], **kw), 50)
+        res["pairs_needed"] = needed
+        res["batch_bound_ms"], res["bound_by"] = _bound(
+            R * (2 * 3 * G * A * 4 + 3 * 4 + 2 * 4),
+            sum(needed) * FLOPS_PER_PAIR)
+    log(f"[kernel batch] ww_pair {json.dumps(res)}")
+    if f_scaled > TOL_F_SCALED_K1:
+        raise RuntimeError(f"{label}: K1 forces {f_scaled:.3g} of max off "
+                           "the plain version's")
+    return res
+
+
+def check_tally_batch(wts, boxes, wm, p, label, *, style, alpha, rc,
+                      timing=True):
+    """K2 on a batch of R distinct packed tile sets (wts (gx, gy, gz, 8,
+    A) each) in one launch against R single launches: outputs and pair
+    counts bitwise equal, and each replica's single launch within
+    TOL_F_SCALED of its plain version in float64, the pairs within 1e-3
+    Å² of rc² each atom's share counted wholly in or out as K2 chose
+    (settle_rc_pairs). With ``timing``, the batched launch's device time
+    (CUDA graph) beside a single launch's, and the batch's bound (the
+    pairs inside rc summed over the replicas). Returns the numbers."""
+    import torch
+
+    from constant_ph_tpu_torch.profiling import graph_ms
+    from constant_ph_tpu_torch.tiled import cuda_ww, forces
+
+    kw = dict(style=style, alpha=alpha, rc=rc)
+    R = len(wts)
+    wtb = torch.stack(wts).contiguous()
+    boxb = torch.stack(boxes).contiguous()
+
+    def batched():
+        return cuda_ww.water_water_tally_cuda(wtb, boxb, wm, p, **kw)
+
+    got = batched()
+    n_b = cuda_ww.water_water_tally_cuda.pairs_evaluated.clone()
+    passes = cuda_ww.water_water_tally_cuda.passes
+    scaled = raw = 0.0
+    band_pairs, other_side = [], []
+    groups = (("f", slice(0, 3)), ("eatom", slice(3, 5)),
+              ("phi", slice(5, 6)))
+    for r in range(R):
+        one = cuda_ww.water_water_tally_cuda(wts[r], boxes[r], wm, p, **kw)
+        if not (torch.equal(got[r], one) and torch.equal(
+                n_b[r:r + 1], cuda_ww.water_water_tally_cuda.pairs_evaluated)):
+            raise RuntimeError(f"{label}: K2 on the batch differs from K2 "
+                               f"on replica {r} alone")
+        ref = forces.water_water_tally_plain(wts[r].double(),
+                                             boxes[r].double(), wm, p, **kw)
+        # one tensor over all rows, so each group's view shares its index
+        diff = one.double() - ref
+        diffs = {g: diff for g, _ in groups}
+        scales = {g: max(1.0, float(torch.abs(ref[..., rows, :]).max()))
+                  for g, rows in groups}
+        raw = max(raw, *(float(diff[..., rows, :].abs().max()) / scales[g]
+                         for g, rows in groups))
+        pairs = rc_band_pairs(wts[r][..., :3, :].movedim(-2, 0), p,
+                              boxes[r], wm, **kw)
+        band_pairs.append(len(pairs))
+        other_side.append(settle_rc_pairs(diffs, scales, pairs,
+                                          k2_pair_terms))
+        scaled = max(scaled, *(float(diff[..., rows, :].abs().max())
+                               / scales[g] for g, rows in groups))
+    G, A = p.G, 3 * p.W
+    res = dict(label=label, R=R, G=G, A=A, style=style, passes=passes,
+               bitwise_batch=True, scaled_err=scaled, scaled_err_raw=raw,
+               pairs_at_rc=band_pairs, pairs_other_side=other_side,
+               pairs_evaluated=n_b.tolist())
+    if timing:
+        needed = [int(forces.water_pairs_in_cutoff_tally(wts[r], boxes[r], p,
+                                                         rc))
+                  for r in range(R)]
+        res["batch_graph_ms"] = graph_ms(batched, 50)
+        res["single_graph_ms"] = graph_ms(
+            lambda: cuda_ww.water_water_tally_cuda(wts[0], boxes[0], wm, p,
+                                                   **kw), 50)
+        res["pairs_needed"] = needed
+        res["batch_bound_ms"], res["bound_by"] = _bound(
+            R * _tally_bytes(G, A),
+            sum(needed) * FLOPS_PER_PAIR_TALLY[style])
+    log(f"[kernel batch] ww_tally {json.dumps(res)}")
+    if scaled > TOL_F_SCALED:
+        raise RuntimeError(f"{label}: K2 {scaled:.3g} of max off the plain "
+                           "version's")
+    return res
+
+
+def tile_sets(ts, states):
+    """Each state's (wxg (3, gx, gy, gz, A), wt packed, box): the tiles
+    the kernels take."""
+    from constant_ph_tpu_torch.tiled import forces
+
+    p = ts.params
+    out = []
+    for st in states:
+        wxg = st.wx.reshape((3,) + p.grid + (3 * p.W,)).contiguous()
+        wt = forces.pack_water_tiles(wxg, st.wvalid.reshape(p.grid + (p.W,)),
+                                     ts.water, p)
+        out.append((wxg, wt, st.box.contiguous()))
+    return out
+
+
+def check_batches(ts, states, label, k2_replicas=0):
+    """K1 on the batch of ``states`` (one tile set each) against single
+    launches, timed; K2 likewise on the first ``k2_replicas``."""
+    sets = tile_sets(ts, states)
+    kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
+    res = {"k1": check_ww_batch([s[0] for s in sets], [s[2] for s in sets],
+                                ts.water, ts.params, label, **kw)}
+    if k2_replicas:
+        sets = sets[:k2_replicas]
+        res["k2"] = check_tally_batch([s[1] for s in sets],
+                                      [s[2] for s in sets], ts.water,
+                                      ts.params, label, **kw)
+    return res
+
+
 def check_tally(ts, st, label, timing=True, forced=()):
     """K2 against its plain version on a TiledSystem's tiles."""
     from constant_ph_tpu_torch.tiled import forces
@@ -542,6 +765,27 @@ def kernel_phase(dev):
                     or o2.movedim(-2, 0)[:, ~live].any()):
                 raise RuntimeError(f"{label}: padded tiles differ from "
                                    f"the W {p.W} tiles")
+    # a batch of two hard tile sets (seeds 0 and 1, the second in a box
+    # 0.5 % longer, so each replica must read its own box) in one launch
+    # of each kernel, bitwise each set's own launch: at W 24 (one pass)
+    # and padded to W 208 (K1 3 passes, K2 9)
+    other = hard_water_tiles(seed=1)
+    other["box"] = (other["box"] * 1.005).astype(other["box"].dtype)
+    for W in (None, 208):
+        sets = [tiles(h if W is None else pad_tiles(h, W))
+                for h in (hard, other)]
+        pw = sets[0][0]
+        for style, alpha in COULOMB[1:2]:
+            label = f"hard-batch-W{pw.W}-{style}-{alpha}"
+            kw = dict(style=style, alpha=alpha, rc=pw.cutoff)
+            r1 = check_ww_batch([s[1] for s in sets], [s[4] for s in sets],
+                                wm, pw, label, timing=False, **kw)
+            r2 = check_tally_batch([s[3] for s in sets],
+                                   [s[4] for s in sets], wm, pw, label,
+                                   timing=False, **kw)
+            if W == 208 and (r1["passes"], r2["passes"]) != (3, 9):
+                raise RuntimeError(f"{label}: passes {r1['passes']}, "
+                                   f"{r2['passes']} (want K1 3, K2 9)")
     # past W_MAX: a refusal that names the limit
     pw, wxw, _, wtw, _ = tiles(pad_tiles(hard, W_MAX + 4))
     for fn in (lambda: cuda_ww.water_water_cuda(wxw, wm, pw, box, **kw),
@@ -560,12 +804,16 @@ def kernel_phase(dev):
 def profile_block(run_block, st, ms_step, block, label="profile"):
     """torch.profiler over one production block (profiling.profile_block):
     device busy time by kernel, kernel launches per step, and the device's
-    idle share against the unprofiled step time."""
+    idle share against the unprofiled step time. Returns (state, {busy
+    ms/step, idle share, device ops/step})."""
     from constant_ph_tpu_torch.profiling import profile_block as prof
 
     st, bp = prof(run_block, st, block)
+    summary = dict(busy_ms_per_step=bp.busy_ms_per_step,
+                   idle_share=1.0 - bp.busy_ms_per_step / ms_step,
+                   ops_per_step=bp.ops_per_step)
     log(f"[{label}] device busy {bp.busy_ms_per_step:.3f} ms/step of "
-        f"{ms_step:.3f}: idle share {1.0 - bp.busy_ms_per_step / ms_step:.4f}"
+        f"{ms_step:.3f}: idle share {summary['idle_share']:.4f}"
         f"; {bp.ops_per_step:.0f} device ops/step")
     # the top rows, and the port's own kernels wherever they rank
     for i, (us, n, key) in enumerate(bp.rows):
@@ -573,7 +821,7 @@ def profile_block(run_block, st, ms_step, block, label="profile"):
                                             "energy_sum")):
             log(f"[{label}] {us / 1e3 / block:9.4f} ms/step "
                 f"{n / block:6.1f}/step {key[:90]}")
-    return st
+    return st, summary
 
 
 # bench.py's pair settings (:128-131); the builder's skin sizes the
@@ -581,6 +829,27 @@ def profile_block(run_block, st, ms_step, block, label="profile"):
 PAIR = {"dsf": dict(cutoff=8.0, skin=0.8, coul_style="dsf", alpha=0.2),
         "pme": dict(cutoff=8.0, skin=0.8, coul_style="cut", alpha=0.30)}
 PME_MESH = dict(spacing=1.5, p=6)
+# λ in the DSF and PME production blocks (dt 2 fs): the λ thermostat and
+# walls of the JAX package's production campaign driver at dt 2 fs
+# (examples/titration_metad_multisite.py:318-320), which the campaign
+# phase runs too. At bench.py's defaults (λ γ 0.005 /fs, walls -0.5 and
+# 1.5) λ runs hot in both packages (ROADMAP Queue 3; on a 3,001-atom box
+# in JAX on the CPU, T_λ 5,577-6,246 K with PME, 2,311-2,355 K with DSF)
+# and the continued PME state can collapse
+LAMBDA_2FS = dict(lambda_gamma=0.05, lam_min=-0.12, lam_max=1.12)
+# free slots a cell keeps when the DSF and PME paths retile to their
+# occupancy before production (the hewl phase keeps 6, the campaign 12):
+# at 4, the PME production at LAMBDA_2FS filled a cell to W - 1 (rebin's
+# capacity flag) within its 144 steps
+PROD_MARGIN = 8
+# bound on T_lam_mean, the production mean of the one site's
+# instantaneous λ temperature: 10 T. One degree of freedom is
+# heavy-tailed (JAX at LAMBDA_2FS on a 3,001-atom box: mean 565-617 K,
+# median 158-161, single steps up to 47,884 K), so a mean over 60-192
+# steps spreads over several T: the DSF path read 1,506 K at LAMBDA_2FS
+# on the card. The bench defaults read 12,003 K (PME) and 15,567 K (DSF)
+# there, 4-5x above the bound
+T_LAM_MAX = 3000.0
 
 
 def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
@@ -639,29 +908,32 @@ def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
     log(f"[{kind} equilibrate] {n_eq} steps: T {float(obs.temp[-1]):.1f} K, "
         f"overflow {bool(ov_eq)} in {time.perf_counter() - t0:.1f} s")
     occ_max = int(st.wvalid.sum(dim=1).max())
-    W_prod = -(-(occ_max + 4) // 4) * 4
+    W_prod = -(-(occ_max + PROD_MARGIN) // 4) * 4
     ts, st = retile(ts, st, W_prod)
     log(f"[{kind} retile] occ_max {occ_max} -> W {ts.params.W} "
         f"(A = {3 * ts.params.W})")
 
     cfg = EngineConfig(dt=2.0, thermostat="langevin", T=300.0, gamma=0.002,
                        lambda_thermostat="langevin", rebuild_every=block,
-                       kspace_every=2 if pme else 1, seed=2)
+                       kspace_every=2 if pme else 1, seed=2, **LAMBDA_2FS)
     eng = TiledEngine(ts, cfg, kspace_ep=pme)
-    run_block = eng.make_run(block)
+    run_block = eng.make_run(block, detailed_flags=True)
     for _ in range(n_warm):
-        st, ov, obs = run_block(st)
+        st, _, obs = run_block(st)
     torch.cuda.synchronize()
-    ov_any = torch.zeros((), dtype=torch.bool, device=st.wx.device)
+    ov_cap = ov_drift = torch.zeros((), dtype=torch.bool,
+                                    device=st.wx.device)
     rows = []
     # the run loop must never wait for the device: any synchronising
     # call (.item(), a pageable host copy, ...) inside a block raises here
     torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
+    block_states = []
     for _ in range(n_meas):
-        st, ov, obs = run_block(st)
-        ov_any = ov_any | ov
+        st, (cap, drift), obs = run_block(st)
+        ov_cap, ov_drift = ov_cap | cap, ov_drift | drift
         rows.append(obs)
+        block_states.append(st)
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -680,7 +952,14 @@ def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
         ms_per_step=ms_step, ns_per_day=ns_day, steps=n_steps,
         T_mean=float(temp.mean()), T_min=float(temp.min()),
         T_max=float(temp.max()), lam_final=float(lam[-1, 0]),
-        overflow=bool(ov_any | ov_eq), h_conserved_finite=bool(
+        # the λ temperature (one site, instantaneous, averaged over the
+        # steps), bounded by T_LAM_MAX: λ heated far above T at dt 2 fs
+        # is the fault of ROADMAP Queue 3
+        T_lam_mean=float(torch.cat([o.temp_lam for o in rows]).mean()),
+        lam_min=float(lam.min()), lam_max=float(lam.max()),
+        overflow=bool(ov_cap | ov_drift | ov_eq),
+        capacity_flag=bool(ov_cap), drift_flag=bool(ov_drift),
+        h_conserved_finite=bool(
             torch.isfinite(h).all()), W=ts.params.W,
         kspace_rows=int((e_k != 0).sum()), h_valid_rows=int(h_valid.sum()),
         memory=eng.memory_usage()["total"])
@@ -698,6 +977,9 @@ def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
     if not 250.0 < result["T_mean"] < 350.0:
         raise RuntimeError(f"{kind} production temperature "
                            f"{result['T_mean']} K")
+    if not result["T_lam_mean"] <= T_LAM_MAX:
+        raise RuntimeError(f"{kind} production λ temperature "
+                           f"{result['T_lam_mean']} K")
     # PME on boundary steps only: e_kspace is non-zero exactly on the
     # h_valid rows (every other step at kspace_every 2); none without PME
     want_k = h_valid if pme is not None else torch.zeros_like(h_valid)
@@ -706,9 +988,10 @@ def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
         raise RuntimeError(f"{kind}: k-space ran on other steps than the "
                            "MTS boundaries")
     if profile:
-        st = profile_block(run_block, st, ms_step, block)
+        st, _ = profile_block(run_block, st, ms_step, block)
+    # the last six block ends: distinct states on the production tiles
     return dict(system=sys_, ts=ts, st=st, pme=pme, cfg=cfg, counts=counts,
-                result=result, checks=checks)
+                result=result, checks=checks, block_states=block_states[-6:])
 
 
 def check_pme_on_cpu(ts, st, pme):
@@ -860,6 +1143,137 @@ def tally_path(ts, st, pme, cfg, n_blocks=4):
             > TOL_K2_K1_E_REL or hs["f_scaled_k2_k1"] > TOL_K2_K1_F_SCALED):
         raise RuntimeError(f"K2 and K1 paths disagree ({hs})")
     return st, counts, res, hs
+
+
+# the JAX package's campaign-physics replica leg (__graft_entry__.py:185-
+# 225) at the PME main path's full width: its pH ladder and metadynamics
+# parameters, one hill a replica in the frozen bias
+PME_REX_PHS = (4.0, 4.25, 4.5, 4.75)
+PME_REX_METAD = dict(nbins=61, sigma=0.05, h0=0.3, gamma=20.0, stride=4)
+
+
+def pme_rex_path(ts, st, pme, cfg):
+    """The REX leg of __graft_entry__.py at the PME main path's width:
+    R = 4 replicas of the PME production state (24,001 atoms, kspace_every
+    2) at pH 4.0–4.75 with a frozen metadynamics bias, one block through
+    make_rex_runner_tiled with K1, then one with use_pallas_ww=True (K2),
+    the counts zeroed just before each and read just after: one launch a
+    batched force evaluation, no host sync. Then one batched force
+    evaluation on a k-space boundary and one off it (each replica's λ
+    forces on its own carried φ) against the same evaluations of a CPU
+    copy of the engine, within TOL_PME_SCALED of max (e_kspace
+    TOL_PME_E_REL), and the off-boundary one against each replica's
+    single evaluation on the card."""
+    import dataclasses
+
+    import torch
+
+    from constant_ph_tpu_torch import metad
+    from constant_ph_tpu_torch.ops.pme import make_pme_params
+    from constant_ph_tpu_torch.parallel import replica
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+
+    mp = metad.MetadParams(**PME_REX_METAD)
+    S = ts.spec.n_sites
+    V0, dV0 = metad.init_tables(S, mp, device=st.lam.device)
+    reps = []
+    for r, ph in enumerate(PME_REX_PHS):
+        lam = torch.full_like(st.lam, 0.2 + 0.2 * r)
+        V, dV = metad.deposit(V0, dV0, lam, mp)
+        reps.append(dataclasses.replace(
+            st, pH=torch.full_like(st.pH, ph), lam=lam, metad_v=V,
+            metad_dv=dV))
+    batch = replica.stack_replicas(reps)
+    R = len(reps)
+    res = dict(R=R, pH=list(PME_REX_PHS), steps=cfg.rebuild_every)
+    t_phase = time.perf_counter()
+    for name, k2 in (("ww_pair", False), ("ww_tally", True)):
+        eng = TiledEngine(ts, cfg, kspace_ep=pme, metad=mp, metad_frozen=True,
+                          use_pallas_ww=k2)
+        block = replica.make_rex_runner_tiled(
+            eng, cfg.rebuild_every, generators=replica.replica_generators(
+                [500 + r for r in range(R)], st.lam.device))
+        swap = torch.Generator(device=st.lam.device).manual_seed(25)
+        torch.cuda.synchronize()
+        zero_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        out, _, accepted, last = block(batch, swap, 0)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"ww_pair": 0, "ww_tally": 0}
+        want[name] = cfg.rebuild_every + 1
+        res[name] = dict(
+            launches=counts, ms_per_walker_step=wall / (
+                R * cfg.rebuild_every) * 1e3,
+            T=last.temp.tolist(), accepted=accepted.tolist(),
+            finite=bool(torch.isfinite(last.h_conserved).all()))
+        log(f"[pme rex {name}] {json.dumps(res[name])}")
+        if counts != want or not res[name]["finite"]:
+            raise RuntimeError(f"the PME REX block with {name} failed its "
+                               f"checks (launches {counts}, want {want})")
+        if sorted(out.pH.tolist()) != sorted(batch.pH.tolist()):
+            raise RuntimeError("the PME REX swap changed the pH multiset")
+        batch = out
+    if batch.step_host % cfg.kspace_every:
+        raise RuntimeError("the PME REX blocks ended off a k-space boundary")
+
+    # one batched evaluation on a boundary, then one off it on the φ it
+    # carried, on the card and on a CPU copy
+    eng = TiledEngine(ts, cfg, kspace_ep=pme, metad=mp, metad_frozen=True)
+    ts_c = ts.to("cpu")
+    pme_c = make_pme_params(pme.box.cpu().numpy(), pme.grid, pme.alpha,
+                            skin=0.8, device="cpu", **PME_MESH)
+    eng_c = TiledEngine(ts_c, cfg, kspace_ep=pme_c, metad=mp,
+                        metad_frozen=True)
+    batch_c = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).cpu()
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)})
+    off = dict(step_host=batch.step_host + 1)
+    f_on = eng.compute_forces(batch, kspace_impulse=True,
+                              phi_recip_prev=batch.phi_recip_s)
+    f_off = eng.compute_forces(dataclasses.replace(batch, **off),
+                               kspace_impulse=True,
+                               phi_recip_prev=f_on.phi_recip_s)
+    c_on = eng_c.compute_forces(batch_c, kspace_impulse=True,
+                                phi_recip_prev=batch_c.phi_recip_s)
+    c_off = eng_c.compute_forces(dataclasses.replace(batch_c, **off),
+                                 kspace_impulse=True,
+                                 phi_recip_prev=c_on.phi_recip_s)
+    errs = {}
+    for tag, a, b in (("on", f_on, c_on), ("off", f_off, c_off)):
+        for name in ("fw", "fs", "dUdlam", "phi_recip_s"):
+            g, c = getattr(a, name).cpu(), getattr(b, name)
+            errs[f"{tag}_{name}_scaled"] = float(
+                (g - c).abs().max()) / max(1.0, float(c.abs().max()))
+    errs["e_kspace_rel"] = float(
+        ((f_on.e_kspace.cpu() - c_on.e_kspace).abs()
+         / c_on.e_kspace.abs()).max())
+    # each replica's off-boundary λ force is its own single evaluation's,
+    # on its own carried φ (the replicas' φ differ)
+    single = 0.0
+    for r, one in enumerate(replica.unstack_replicas(
+            dataclasses.replace(batch, **off))):
+        f1 = eng.compute_forces(one, kspace_impulse=True,
+                                phi_recip_prev=f_on.phi_recip_s[r])
+        single = max(single, float((f1.dUdlam - f_off.dUdlam[r]).abs().max())
+                     / max(1.0, float(f1.dUdlam.abs().max())))
+    errs["off_dUdlam_vs_single_scaled"] = single
+    spread = float((f_on.phi_recip_s - f_on.phi_recip_s[:1]).abs().max())
+    errs["phi_recip_spread"] = spread
+    res["card_vs_cpu"] = errs
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[pme rex card vs cpu] {json.dumps(errs)}")
+    if (max(v for k, v in errs.items() if k.endswith("_scaled")
+            and not k.startswith("off_dUdlam_vs")) > TOL_PME_SCALED
+            or errs["e_kspace_rel"] > TOL_PME_E_REL
+            or single > TOL_F_SCALED or not spread > 0.0):
+        raise RuntimeError(f"the batched PME evaluation failed its checks "
+                           f"({errs})")
+    return res
 
 
 # the reference engine on the PME path's system: factorized Ewald at the
@@ -1316,6 +1730,123 @@ CAMPAIGN_CHUNK = 48
 CAMPAIGN_TI = (12, 24)
 
 
+# the campaign's walkers as one batch against the same walkers run one by
+# one, one 12-step block from one state with generators of the same
+# seeds: both draw the same noise and differ only in the order of the
+# batch's sums (fixed before the first reading on the card; CPU runs of
+# the acid box agree bit for bit, and a CPU rehearsal of this block on a
+# 2,100-atom polypeptide read λ 7.5e-9, positions 1.05e-5 Å and
+# h_conserved 2.87e-5 of its |max| ~1e3 kcal/mol: float32 sums in
+# another order, of terms that do not shrink with h). A walker fed
+# another walker's noise moves ~1e-2 Å and its λ ~1e-2 in such a block
+TOL_BATCH_LOOP = dict(lam=1e-4, x=1e-3, h_rel=1e-4)
+# the production driver's default --replicas 9: pH 3.0–7.0 in 0.5 steps,
+# one walker a pH
+CAMPAIGN_R9_PHS = tuple(3.0 + 0.5 * k for k in range(9))
+
+
+def _batch_vs_looped(eng, batch, seeds, block, sync):
+    """One block of the walkers as the batch and one by one (the port's
+    loop before replicas were a batch), from the same state with
+    generators of the same seeds: λ, positions and h_conserved within
+    TOL_BATCH_LOOP, and each form's ms per walker-step (host clock)."""
+    from constant_ph_tpu_torch.parallel import replica
+
+    run = eng.make_run(block)
+    dev = batch.lam.device
+    R = batch.lam.shape[0]
+    sync()
+    t0 = time.perf_counter()
+    got, _, obs = run(batch, replica.replica_generators(seeds, dev))
+    sync()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = [run(st, g) for st, g in zip(
+        replica.unstack_replicas(batch),
+        replica.replica_generators(seeds, dev))]
+    sync()
+    t_loop = time.perf_counter() - t0
+    diff = dict(lam=0.0, x=0.0, h_rel=0.0)
+    for r, (st, _, o) in enumerate(outs):
+        diff["lam"] = max(diff["lam"], float((obs.lam[r] - o.lam).abs().max()))
+        diff["x"] = max(diff["x"], float((got.wx[r] - st.wx).abs().max()),
+                        float((got.sx[r] - st.sx).abs().max()))
+        diff["h_rel"] = max(diff["h_rel"], float(
+            (obs.h_conserved[r] - o.h_conserved).abs().max()
+            / o.h_conserved.abs().max()))
+    res = dict(R=R, steps=block, max_diff=diff, bars=TOL_BATCH_LOOP,
+               batched_ms_per_walker_step=t_batch / (R * block) * 1e3,
+               looped_ms_per_walker_step=t_loop / (R * block) * 1e3,
+               batched_ms_per_step=t_batch / block * 1e3)
+    log(f"[campaign batched vs looped] {json.dumps(res)}")
+    if any(diff[k] > TOL_BATCH_LOOP[k] for k in diff):
+        raise RuntimeError(f"the batched block left the looped one ({res})")
+    return res
+
+
+def _campaign_r9(eng, batch, mp, chunk, block, sync, dev):
+    """One measured chunk of R = 9 walkers (CAMPAIGN_R9_PHS, one a pH,
+    zeroed frozen tables, λ in the basin HH favours) on the campaign's
+    relaxed positions, after a one-block warm-up: ms per walker-step,
+    peak GiB, K1 launches = batched force evaluations, no overflow, T
+    in 250–350 K; then a block of the nine under the profiler."""
+    import dataclasses
+
+    import torch
+
+    from constant_ph_tpu_torch import metad
+    from constant_ph_tpu_torch.parallel import replica
+
+    base = replica.unstack_replicas(batch)
+    V0, dV0 = metad.init_tables(batch.lam.shape[-1], mp,
+                                device=batch.lam.device)
+    pK = eng.ts.spec.pK
+    walkers = [dataclasses.replace(
+        base[k % len(base)], pH=torch.full_like(base[0].pH, ph),
+        lam=torch.where(pK > ph, 0.05, 0.95).to(base[0].lam.dtype),
+        v_lam=torch.zeros_like(base[0].v_lam), metad_v=V0, metad_dv=dV0)
+        for k, ph in enumerate(CAMPAIGN_R9_PHS)]
+    R = len(walkers)
+    b9 = replica.stack_replicas(walkers)
+    gens = replica.replica_generators([3000 + k for k in range(R)],
+                                      batch.lam.device)
+    one, run = eng.make_run(block), eng.make_run(chunk)
+    b9 = one(b9, gens)[0]
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("error")
+    zero_counts()
+    t0 = time.perf_counter()
+    b9, ov, obs = run(b9, gens)
+    if dev == "cuda":
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    evals = -(-chunk // block) * (block + 1)
+    res = dict(R=R, pH=list(CAMPAIGN_R9_PHS), steps=chunk,
+               ms_per_walker_step=wall / (R * chunk) * 1e3,
+               ms_per_step=wall / chunk * 1e3,
+               peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                if dev == "cuda" else None),
+               launches=counts, force_evaluations=evals,
+               T_mean=float(obs.temp.mean()), overflow=bool(ov.any()),
+               h_conserved_finite=bool(torch.isfinite(obs.h_conserved).all()))
+    log(f"[campaign R9] {json.dumps(res)}")
+    if counts != {"ww_pair": evals, "ww_tally": 0}:
+        raise RuntimeError("the R = 9 chunk did not run each batched force "
+                           "evaluation through one K1 launch")
+    if (res["overflow"] or not res["h_conserved_finite"]
+            or not 250.0 < res["T_mean"] < 350.0):
+        raise RuntimeError(f"the R = 9 chunk failed its checks ({res})")
+    if dev == "cuda":
+        _, res["profile"] = profile_block(
+            lambda s: one(s, gens), b9, res["ms_per_step"], block,
+            label=f"campaign profile R{R}")
+    return res
+
+
 def _hill_mass(lam, mp):
     """Σ over hills of h0·Σ_grid exp(−(λ_grid − λ)²/2σ²)·dx per site (the
     table mass each hill would add at full height), float64 on the
@@ -1341,8 +1872,10 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
     against a frozen bias, 2 chunks, each rung's hills merged with
     deposit_many; (b) one chunk with in-run deposits on a walker per rung;
     (c) one replica-exchange block; (d) a poisoned replica flagged and
-    rolled back; (e) the estimators. Counts are zeroed just before the
-    path and read just after; the run blocks never synchronise. The
+    rolled back; (e) the estimators. The walkers run as one batch (one
+    run call, one K1 launch a force evaluation). Counts are zeroed just
+    before the path and read just after; the run blocks never
+    synchronise. Then the batched-vs-looped block and the R = 9 chunk. The
     relaxation is the DSF and PME paths' (a 200 + 96-step one left the
     production box above the T gate). Smaller ``build`` / depths only
     serve a rehearsal on the CPU. Returns the numbers."""
@@ -1440,6 +1973,8 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
             seeds.append(2000 + g * 131 + w)
     gens = replica.replica_generators(seeds, st.lam.device)
     batch = replica.stack_replicas(reps)
+    # the walkers are one batch: every run call below moves all of them
+    # with one sequence of launches (K1 once a force evaluation)
     run = eng.make_run(chunk)
     # (b)'s engine deposits in the run; (c)'s runner and swap generator
     eng_dep = TiledEngine(ts, cfg, bias=bias, metad=mp)
@@ -1455,12 +1990,9 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
     # rung's hills (the λ trace at the stride, walkers interleaved
     # time-major) merged into its table with deposit_many
     for _ in range(2):
-        outs = [run(s, gen) for s, gen in zip(
-            replica.unstack_replicas(batch), gens)]
-        evals += R * runs
-        batch = replica.stack_replicas([o[0] for o in outs])
-        ovs += [o[1] for o in outs]
-        obs = replica.stack_replicas([o[2] for o in outs])   # (R, T, …)
+        batch, ov, obs = run(batch, gens)                    # (R, T, …)
+        evals += runs
+        ovs.append(ov)
         rows.append(obs)
         lam_tr = obs.lam[:, mp.stride - 1::mp.stride]        # (R, K, S)
         K = lam_tr.shape[1]
@@ -1477,27 +2009,28 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
             metad_dv=torch.stack([d for _, d in new]).repeat_interleave(
                 wpp, dim=0))
         merges.append((Vg, seq, batch.metad_v))
-    # (b) in-run deposits: a walker per rung, one chunk in calls of one
-    # block, so each call's booked ΔV is its final ext_work minus the
-    # ext_work of its last step
-    dep = replica.unstack_replicas(batch)[::wpp]
+    # (b) in-run deposits: a walker per rung, the three as one batch, one
+    # chunk in calls of one block, so each call's booked ΔV is its final
+    # ext_work minus the ext_work of its last step
+    dep = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[::wpp]
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)})
     dep_gens = gens[::wpp]
     booked = []
     for _ in range(-(-chunk // block)):
-        before = [(s.metad_v, s.metad_dv) for s in dep]
-        outs = [run_block(s, gen) for s, gen in zip(dep, dep_gens)]
-        evals += len(dep) * (block + 1)
-        dep = [o[0] for o in outs]
-        ovs += [o[1] for o in outs]
-        rows.append(replica.stack_replicas([o[2] for o in outs]))
-        booked.append([(v0, s.metad_v, s.metad_dv, s.lam,
-                        s.ext_work - o[2].ext_work[-1], s.ext_work)
-                       for v0, s, o in zip(before, dep, outs)])
+        v0, dv0 = dep.metad_v, dep.metad_dv
+        dep, ov, obs = run_block(dep, dep_gens)
+        evals += block + 1
+        ovs.append(ov)
+        rows.append(obs)
+        booked.append((v0, dv0, dep.metad_v, dep.metad_dv, dep.lam,
+                       dep.ext_work - obs.ext_work[:, -1], dep.ext_work))
     # (c) one replica-exchange block on the six walkers; parity 1 pairs
     # walkers of neighbouring rungs
     prev = batch
     batch, _, accepted, last = rex(batch, swap_gen, 1)
-    evals += R * (block + 1)
+    evals += block + 1
     if dev == "cuda":
         torch.cuda.set_sync_debug_mode("default")
     sync()
@@ -1514,14 +2047,14 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
                   + [last.h_conserved])
     prod.update(T_mean=float(temp.mean()), T_min=float(temp.min()),
                 T_max=float(temp.max()),
-                overflow=bool(torch.stack(ovs).any() | ov_eq),
+                overflow=bool(torch.cat(ovs).any() | ov_eq),
                 h_conserved_finite=bool(torch.isfinite(h).all()),
                 swaps_accepted=accepted.tolist(),
                 peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
                                  if dev == "cuda" else None))
     log(f"[campaign production] {json.dumps(prod)}")
     log(f"[campaign launches] {json.dumps(counts)}, force evaluations "
-        f"{evals}")
+        f"{evals} (one launch a batched evaluation)")
     if counts != {"ww_pair": evals, "ww_tally": 0}:
         raise RuntimeError("the campaign path did not run every force "
                            "evaluation through the CUDA kernel K1")
@@ -1553,8 +2086,8 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
     # |ext_work|)
     for r in range(G):
         hills = 0
-        for calls in booked:
-            (v0, dv0), v1, dv1, lam, moved, work = calls[r]
+        for v0, dv0, v1, dv1, lam, moved, work in booked:
+            v0, dv0, v1, dv1, lam = (t[r] for t in (v0, dv0, v1, dv1, lam))
             added = _table_mass(v1, mp) - _table_mass(v0, mp)
             if float(np.abs(added).max()) > 0.0:
                 hills += 1
@@ -1564,13 +2097,13 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
                                        f"{ratio} of a hill")
             want = torch.sum(metad.lookup(v1, dv1, lam, mp)[0]
                              - metad.lookup(v0, dv0, lam, mp)[0])
-            err = abs(float(moved) - float(want))
+            err = abs(float(moved[r]) - float(want))
             gates["inrun_booked_err"] = max(gates["inrun_booked_err"], err)
-            ulp = float(np.spacing(np.float32(abs(float(work)))))
+            ulp = float(np.spacing(np.float32(abs(float(work[r])))))
             if err > 4 * ulp + 1e-5 * abs(float(want)):
                 raise RuntimeError(f"in-run deposit: ext_work moved by "
-                                   f"{float(moved)}, ΣΔV is {float(want)} "
-                                   f"(ext_work {float(work)})")
+                                   f"{float(moved[r])}, ΣΔV is {float(want)} "
+                                   f"(ext_work {float(work[r])})")
         gates["inrun_hills"].append(hills)
         if hills != 1:
             raise RuntimeError(f"walker {r}: {hills} in-run deposits in one "
@@ -1631,20 +2164,31 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
                            for k, v in est.items()}
     log(f"[campaign gates] {json.dumps(gates)}")
 
-    # measurements: K1 on the campaign tiles, the solute blocks at Ns 600,
-    # and one production block under the profiler
-    walker = replica.unstack_replicas(batch)[0]
     res = dict(prod=prod, counts=counts, gates=gates)
+    res["compare"] = _batch_vs_looped(eng, batch, seeds, block, sync)
+    res["r9"] = _campaign_r9(eng, batch, mp, chunk, block, sync, dev)
+
+    # measurements: K1 on the campaign tiles, alone and as the batch of
+    # the six walkers, the solute blocks at Ns 600, and a batched block of
+    # the six under the profiler
+    walker = replica.unstack_replicas(batch)[0]
     if dev == "cuda":
         res["k1"] = check_ww(ts, walker, "campaign-tiles", forced=(3,))
+        res["k1_batch"] = check_batches(
+            ts, replica.unstack_replicas(batch), "campaign-tiles")["k1"]
         p = ts.params
         kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
         wxg = walker.wx.reshape((3,) + p.grid + (3 * p.W,))
+        wxb = batch.wx.reshape((R, 3) + p.grid + (3 * p.W,))
         qs = eng.charges_solute(walker.lam)
+        qb = eng.charges_solute(batch.lam)
         blocks = {}
         for name, fn in (
                 ("water_solute_fast", lambda: forces.water_solute_fast(
                     wxg, walker.sx, qs, ts.solute, ts.water, p, walker.box,
+                    **kw)),
+                (f"water_solute_fast_R{R}", lambda: forces.water_solute_fast(
+                    wxb, batch.sx, qb, ts.solute, ts.water, p, batch.box,
                     **kw)),
                 ("solute_solute", lambda: forces.solute_solute(
                     walker.sx, qs, ts.solute, walker.box, **kw))):
@@ -1660,9 +2204,10 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
         log(f"[campaign solute blocks] G {p.G}, A {3 * p.W}, Ns "
             f"{int(ts.solute.q0.shape[0])}: {json.dumps(blocks)}")
         one = eng.make_run(block)
-        profile_block(lambda s: one(s, gens[0]), walker,
-                      prod["ms_per_walker_step"], block,
-                      label="campaign profile")
+        _, res["profile"] = profile_block(
+            lambda s: one(s, gens), batch,
+            res["compare"]["batched_ms_per_step"], block,
+            label=f"campaign profile R{R}")
     log(f"[campaign] phase {time.perf_counter() - t_phase:.1f} s")
     return res
 
@@ -1937,6 +2482,33 @@ class _ElasticProbe:
         elastic.elastic_run = self.orig
 
 
+class _RunProbe:
+    """Records, while active, the batch size of every call of a run that
+    TiledEngine.make_run returns (1 for a single state)."""
+
+    def __enter__(self):
+        from constant_ph_tpu_torch.tiled.engine import TiledEngine
+
+        self.calls = calls = []
+        self._orig = orig = TiledEngine.make_run
+
+        def make_run(eng, n_steps, detailed_flags=False):
+            run = orig(eng, n_steps, detailed_flags)
+
+            def counted(st, generators=None):
+                calls.append(int(st.pH.shape[0]) if st.pH.ndim else 1)
+                return run(st, generators)
+            return counted
+
+        TiledEngine.make_run = make_run
+        return self
+
+    def __exit__(self, *exc):
+        from constant_ph_tpu_torch.tiled.engine import TiledEngine
+
+        TiledEngine.make_run = self._orig
+
+
 def _k1_passes(dev, W):
     """The passes K1 stages its stencil in at W (None off the card)."""
     if dev != "cuda":
@@ -2196,8 +2768,15 @@ def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
     t0 = time.perf_counter()
     rex, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6"], "titrate rex",
                            expect_kernel=False)
-    met, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6", "--method",
-                            "metad"], "titrate metad", expect_kernel=False)
+    # the metad walkers run as one batch: one run call of both a chunk
+    # (250 steps in chunks of 50 · rebuild_every: one chunk)
+    with _RunProbe() as walker_runs:
+        met, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6", "--method",
+                                "metad"], "titrate metad",
+                               expect_kernel=False)
+    if walker_runs.calls != [2]:
+        raise RuntimeError(f"cli titrate metad ran {walker_runs.calls}, not "
+                           "one batched call of its two walkers")
     ti, _, _, _ = command(["calibrate", cfg_c, "--equil", "20",
                            "--window-equil", "10", "--samples", "20"],
                           "calibrate ti", expect_kernel=False)
@@ -2211,6 +2790,7 @@ def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
         log(f"  refused: {str(err)[:100]}")
     fracs = rex["deprotonated_fraction"] + met["deprotonated_fraction"]
     res_c = dict(
+        metad_run_calls=walker_runs.calls,
         rex_keys=sorted(rex), metad_keys=sorted(met), ti_keys=sorted(ti),
         fractions=fracs, metad_refused=refused,
         finite=_finite([rex, met, ti]),
@@ -2326,6 +2906,7 @@ def npt_path(ts, st, pme, cfg, n_chunks=4, chunk=48, pressure_atm=1.0,
                box_drift=float(np.abs(box / box0 - 1.0).max()),
                ms_per_step=wall / (n_chunks * chunk) * 1e3,
                T_mean=float(obs.temp.mean()),
+               T_lam_mean=float(obs.temp_lam.mean()),
                h_conserved_finite=bool(torch.isfinite(obs.h_conserved).all()),
                retiles=info.n_retiles)
     # a move's result is the next chunk's start: redo the moves (their
@@ -2370,7 +2951,8 @@ def npt_path(ts, st, pme, cfg, n_chunks=4, chunk=48, pressure_atm=1.0,
                            "evaluation through the CUDA kernel K1")
     if not (same and scaled and refused and np.isfinite(res["pressure_atm"])
             and res["box_drift"] <= 0.04 and res["bond_change"] < 5e-5
-            and res["h_conserved_finite"]):
+            and res["h_conserved_finite"]
+            and res["T_lam_mean"] <= T_LAM_MAX):
         raise RuntimeError(f"NPT path failed its checks ({res})")
     log(f"[npt] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(res=res, counts=counts, ts=ts_n, st=st_n)
@@ -2439,6 +3021,124 @@ def cutoff_flips(wxg, p, box, wm, *, style, alpha, rc):
     return n, f
 
 
+def rc_band_pairs(wxg, p, box, wm, *, style, alpha, rc, band=1e-3):
+    """The hot-path atom pairs (half stencil plus the self tile, as
+    water_water_fast_plain takes them) whose float64 r² lies within
+    ``band`` Å² of rc²: pairs that a float32 r² may place on the other
+    side of the cutoff than float64 does, where the 'cut' style steps by
+    ~0.01-0.03 kcal/mol/Å a pair. A float32 r² is off by up to ~1e-4 Å²
+    on the 64 Å box: a neighbour's image shift (±L) is added to its
+    coordinates in float32 (7.8e-5 Å² measured for the plain version's
+    r² at rc), and the kernels' fused multiply-adds round otherwise. One dict a pair: its atoms ``i`` and ``j`` as
+    (cx, cy, cz, slot) tile indices, ``in64`` (float64 takes it inside
+    rc), and its float64 terms when inside: ``f`` the force on i (j gets
+    its negative), ``e_lj`` and ``e_coul`` the pair energies, ``u`` the
+    Coulomb kernel u(r)·QQR2E, ``qi`` and ``qj`` the charges."""
+    import numpy as np
+    import torch
+
+    from constant_ph_tpu_torch import units
+    from constant_ph_tpu_torch.tiled import forces
+
+    dims = (1, 2, 3)
+    consts = forces.coulomb_constants(style, alpha, rc)
+    q = np.tile(np.asarray(wm.q_pattern, np.float64), p.W)
+    w64 = wxg.double()
+    out = []
+    for off in list(p.half_stencil) + [None]:
+        xj = w64 if off is None else (
+            torch.roll(w64, tuple(-o for o in off), dims=dims)
+            + forces._roll_shift(box.double(), p.grid, off, torch.float64))
+        d = w64[..., :, None] - xj[..., None, :]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        near = (r2 - rc * rc).abs() < band
+        if off is None:          # the self tile: each pair once, no water
+            a = torch.arange(3 * p.W, device=wxg.device)       # with itself
+            near = near & ((a // 3)[:, None] < (a // 3)[None, :])
+        idx = torch.nonzero(near)
+        if idx.shape[0] == 0:
+            continue
+        cx, cy, cz, ai, bj = idx.unbind(1)
+        r2_p = r2[cx, cy, cz, ai, bj]
+        u_r, w_r, inv_r2 = forces._screened_coulomb(
+            torch.clamp(r2_p, min=forces.R2_MIN), style, rc, consts)
+        inv_r6 = inv_r2 ** 3
+        oo = ((ai % 3 == 0) & (bj % 3 == 0)).double()
+        qa = torch.as_tensor(q, device=wxg.device)[ai]
+        qb = torch.as_tensor(q, device=wxg.device)[bj]
+        kqq = units.QQR2E * qa * qb
+        h = kqq * w_r + oo * (12.0 * wm.c12_OO * inv_r6
+                              - 6.0 * wm.c6_OO) * inv_r6 * inv_r2
+        f = (h[None] * d[:, cx, cy, cz, ai, bj]).T
+        e_lj = oo * ((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6
+                     - wm.eshift_OO)
+        o = (0, 0, 0) if off is None else off
+        for k, (x, y, z, a_, b_) in enumerate(idx.tolist()):
+            j = tuple((c + oc) % g for c, oc, g in zip((x, y, z), o, p.grid))
+            out.append(dict(
+                i=(x, y, z, a_), j=j + (b_,), in64=bool(r2_p[k] < rc * rc),
+                f=f[k].tolist(), e_lj=float(e_lj[k]),
+                e_coul=float(kqq[k] * u_r[k]),
+                u=float(units.QQR2E * u_r[k]), qi=float(qa[k]),
+                qj=float(qb[k])))
+    return out
+
+
+def k1_pair_terms(pr):
+    """A pair's terms in K1's outputs, one list for each of its atoms:
+    the force on that atom (3, gx, gy, gz, A), and with atom i the two
+    energies ("e": e_lj, e_coul)."""
+    return [[("f", (k,) + pr["i"], pr["f"][k]) for k in range(3)]
+            + [("e", (0,), pr["e_lj"]), ("e", (1,), pr["e_coul"])],
+            [("f", (k,) + pr["j"], -pr["f"][k]) for k in range(3)]]
+
+
+def k2_pair_terms(pr):
+    """A pair's terms in K2's packed output (gx, gy, gz, 8, A), one list
+    for each of its atoms: force rows 0-2, half of each pair energy in
+    eatom rows 3-4, φ in row 5 (the other atom's charge times u)."""
+    def side(atom, sign, q_other):
+        def at(row):
+            return atom[:3] + (row, atom[3])
+        return ([("f", at(k), sign * pr["f"][k]) for k in range(3)]
+                + [("eatom", at(3), 0.5 * pr["e_lj"]),
+                   ("eatom", at(4), 0.5 * pr["e_coul"]),
+                   ("phi", at(5), pr["u"] * q_other)])
+
+    return [side(pr["i"], 1.0, pr["qj"]), side(pr["j"], -1.0, pr["qi"])]
+
+
+def settle_rc_pairs(diffs, scales, pairs, terms):
+    """Counts each atom's share of each pair of ``pairs`` (rc_band_pairs)
+    wholly inside or wholly outside rc, whichever the kernel chose for
+    that atom: ``diffs`` holds the kernel's outputs less its float64 plain
+    version's (float64 tensors by group, changed in place), in which a
+    share the kernel placed on the other side shows as its whole float64
+    terms (``terms(pair)``: one list of (group, index, value) for each
+    atom of the pair), with the sign of that side. The kernels evaluate a
+    pair's two shares apart (K1 from each atom's staged tile, K2 from
+    each atom's cell), so float32 may place them on different sides. A
+    share is taken as placed on the other side where removing its terms
+    leaves the smaller sum of |diff| / scale over the per-atom outputs it
+    touches (the groups in ``scales``); then all its terms go, totals
+    included, and nothing else is taken off. Returns the number of
+    shares so taken."""
+    n = 0
+    for pr in pairs:
+        sign = -1.0 if pr["in64"] else 1.0
+        for share in terms(pr):
+            per_atom = [(float(diffs[g][ix]), g, v) for g, ix, v in share
+                        if g in scales]
+            before = sum(abs(d) / scales[g] for d, g, _ in per_atom)
+            after = sum(abs(d - sign * v) / scales[g]
+                        for d, g, v in per_atom)
+            if after < before:
+                for g, ix, v in share:
+                    diffs[g][ix] -= sign * v
+                n += 1
+    return n
+
+
 def main():
     import torch
 
@@ -2466,6 +3166,11 @@ def main():
     # passes forced where one pass fits: bitwise the one-pass outputs
     k1 = check_ww(ts, st, "pme-production-tiles", forced=(3,))
     k2 = check_tally(ts, st, "pme-production-tiles", forced=(3, 9))
+    # K1 on a batch of six of the path's block-end states in one launch,
+    # K2 on two of them: bitwise each state's own launch
+    pme_batch = check_batches(ts, pme["block_states"],
+                              "pme-production-tiles", k2_replicas=2)
+    rex = pme_rex_path(ts, st, pme["pme"], pme["cfg"])
     # both kernels again on the production state at W 56 (A 168), the
     # width the first two slices timed them at
     ts56, st56 = retile(ts, st, max(56, ts.params.W))
@@ -2497,8 +3202,22 @@ def main():
              stencil_bound_ms=k1["stencil_bound_ms"],
              pairs_needed=k1["pairs_needed"],
              pairs_evaluated=k1["pairs_evaluated"],
-             # the same kernel on the campaign path and its tiles
+             # one launch on a batch of R states of these tiles (R × the
+             # single bound), and the launches of the batched campaign
+             # production (one a batched force evaluation)
+             batch_R=pme_batch["k1"]["R"],
+             batch_graph_ms=pme_batch["k1"]["batch_graph_ms"],
+             batch_bound_ms=pme_batch["k1"]["batch_bound_ms"],
+             batch_launches=camp["counts"]["ww_pair"],
+             batch_pairs_evaluated=pme_batch["k1"]["pairs_evaluated"],
+             # the PME REX block (R 4, kspace_every 2, frozen metad bias)
+             rex_launches=rex["ww_pair"]["launches"]["ww_pair"],
+             # the same kernel on the campaign path and its tiles, alone
+             # and on the batch of its six walkers
              campaign_launches=camp["counts"]["ww_pair"],
+             campaign_batch_R=camp["k1_batch"]["R"],
+             campaign_batch_graph_ms=camp["k1_batch"]["batch_graph_ms"],
+             campaign_batch_bound_ms=camp["k1_batch"]["batch_bound_ms"],
              campaign_ms=k1c["ms"], campaign_plain_ms=k1c["plain_ms"],
              campaign_bound_ms=k1c["bound_ms"],
              campaign_pairs_needed=k1c["pairs_needed"],
@@ -2535,6 +3254,13 @@ def main():
              stencil_bound_ms=k2["stencil_bound_ms"],
              pairs_needed=k2["pairs_needed"],
              pairs_evaluated=k2["pairs_evaluated"],
+             # one launch on a batch of R states of the PME tiles, and the
+             # launches of the batched PME REX block
+             batch_R=pme_batch["k2"]["R"],
+             batch_graph_ms=pme_batch["k2"]["batch_graph_ms"],
+             batch_bound_ms=pme_batch["k2"]["batch_bound_ms"],
+             batch_launches=rex["ww_tally"]["launches"]["ww_tally"],
+             batch_pairs_evaluated=pme_batch["k2"]["pairs_evaluated"],
              # compute_Hs on the tiled Ewald engine
              ewald_tally_launches=ewald["tally_counts"]["ww_tally"],
              # at W 208 on the hewl production tiles (stencil in passes)

@@ -367,13 +367,6 @@ def cmd_titrate(args):
     print(json.dumps(out))
 
 
-def _run_walkers(run, walkers, generators):
-    """One chunk of every λ-metadynamics walker, each on its own
-    generator. A loop until replicas are a batch dimension of the
-    engine (ROADMAP item 13): this is the one place that changes then."""
-    return [run(w, g)[0] for w, g in zip(walkers, generators)]
-
-
 def _titrate_metad(args):
     """One well-tempered λ-metadynamics walker per pH on the tiled engine:
     the bias profile gives per-site deprotonated fractions (tail-time
@@ -381,7 +374,7 @@ def _titrate_metad(args):
     from constant_ph_tpu_torch import metad
     from constant_ph_tpu_torch.observables import hh_curve
     from constant_ph_tpu_torch.parallel.replica import (
-        _fold_in, replica_generators,
+        _fold_in, replica_generators, stack_replicas,
     )
     from constant_ph_tpu_torch.tiled.engine import TiledEngine
     from constant_ph_tpu_torch.tiled.layout import split_system, to_tiled
@@ -402,9 +395,10 @@ def _titrate_metad(args):
     tst = dataclasses.replace(tst, metad_v=V0, metad_dv=dV0)
     tst, _ = eng.make_minimize(
         int(cfg.get("run", {}).get("minimize_steps", 200)))(tst)
-    walkers = [dataclasses.replace(
+    # the walkers are one batch: a chunk of all of them is one run call
+    walkers = stack_replicas([dataclasses.replace(
         tst, pH=torch.tensor(p, dtype=tst.pH.dtype, device=dev),
-        metad_v=V0.clone(), metad_dv=dV0.clone()) for p in pHs]
+        metad_v=V0, metad_dv=dV0) for p in pHs])
     gens = replica_generators(
         [_fold_in(ecfg.seed, 100 + i) for i in range(len(pHs))], dev)
 
@@ -415,11 +409,11 @@ def _titrate_metad(args):
     frac_sum = torch.zeros((len(pHs), S), device=dev)
     n_tail = 0
     for c in range(n_chunks):
-        walkers = _run_walkers(run, walkers, gens)
+        walkers = run(walkers, gens)[0]
         if c >= n_chunks // 2:              # tail-time-averaged estimator
-            V = torch.stack([w.metad_v for w in walkers])
             frac_sum += metad.deprotonated_fraction(
-                V.reshape(len(pHs) * S, mp.nbins), mp).reshape(len(pHs), S)
+                walkers.metad_v.reshape(len(pHs) * S, mp.nbins),
+                mp).reshape(len(pHs), S)
             n_tail += 1
     frac = (frac_sum / max(n_tail, 1)).cpu().numpy()
     out = {

@@ -7,10 +7,11 @@
 // water_water_pallas_fast), which computes the same function as the XLA
 // hot path constant_ph_tpu/tiled/forces.py water_water_fast.
 //
-// Function: wx (3, G, A) float32 contiguous water coordinates, A = 3W
-// slots per cell (O, H1, H2 of molecule k in slots 3k, 3k+1, 3k+2; empty
-// slots parked far outside the box, all three on one point), box (3,) on
-// the device -> f (3, G, A) forces, e_out = (e_lj, e_coul), n_out = the
+// Function, for each of R replicas r (a batch; R = 1 for one state): wx
+// (R, 3, G, A) float32 contiguous water coordinates, A = 3W slots per cell
+// (O, H1, H2 of molecule k in slots 3k, 3k+1, 3k+2; empty slots parked far
+// outside the box, all three on one point), box (R, 3) on the device -> f
+// (R, 3, G, A) forces, e_out (R, 2) = (e_lj, e_coul), n_out (R,) = the
 // atom pairs evaluated. Coulomb on all atom pairs with the degree-10
 // Chebyshev screening fits g1, g2 in t = min(2r/rc - 1, 1) (DSF or erfc
 // style); 12-6 shifted LJ on O-O pairs only; r^2 clamped at R2_MIN; pairs
@@ -56,13 +57,17 @@
 // write-back, each element of f written by exactly one lane (zeros for
 // parked slots, whose cull keeps nothing). Energies count every pair twice
 // and carry a global 0.5; they go to per-block partial sums and a second
-// one-block pass adds those in a fixed order. Every sum has a fixed order
+// pass, one block a replica, adds each replica's in a fixed order. Every sum has a fixed order
 // (lists in stencil and lane order, fixed shuffle trees), so the same
 // inputs give bitwise-identical outputs on every launch.
 //
-// Layout. Grid (ceil(W / 16), G): a block of 16 warps takes 16 molecules
-// of a cell, one i molecule per warp (864 blocks at the 6^3 production
-// grid and W = 56). It stages the whole stencil of its cell once: 27
+// Layout. Grid (ceil(W / 16), G, R): a block of 16 warps takes 16
+// molecules of a cell of one replica, one i molecule per warp (864 blocks
+// a replica at the 6^3 production grid and W = 56). blockIdx.z picks the
+// replica: a block offsets wx, box, f and its partials by it and does
+// nothing else differently, so a batched launch gives each replica bit
+// for bit what a launch on that replica alone gives. R <= 65535
+// (gridDim.z). It stages the whole stencil of its cell once: 27
 // tiles x 3 dims x A floats (54 KB at A = 168, 74 KB at A = 228), copied
 // with cp.async in 16-byte pieces (rows are 16-byte aligned: W is a
 // multiple of 4, so A is a multiple of 12). One pass then adds the image
@@ -247,6 +252,10 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
   short* cand = reinterpret_cast<short*>(own_rho + own_tiles * W);
   short* ring = cand + spp * W;              // [WARPS][RING]
   const int cell = blockIdx.y;
+  // this block's replica
+  wx += (size_t)blockIdx.z * 3 * G * A;
+  f += (size_t)blockIdx.z * 3 * G * A;
+  box += 3 * blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -495,7 +504,8 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
       b += wsum[1][k];
       n += wcnt[k];
     }
-    const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+    const int blk =
+        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
     // every pair was seen from both of its molecules
     e_part[2 * blk] = 0.5f * a;
     e_part[2 * blk + 1] = 0.5f * b;
@@ -503,8 +513,8 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
   }
 }
 
-// (e_lj, e_coul) and the pairs evaluated = fixed-order sums of the
-// per-block partials
+// (e_lj, e_coul) and the pairs evaluated of replica blockIdx.x =
+// fixed-order sums of its nblk per-block partials
 __global__ void __launch_bounds__(NT)
 energy_sum_kernel(const float* __restrict__ e_part,
                   const int* __restrict__ n_part, int nblk,
@@ -512,6 +522,10 @@ energy_sum_kernel(const float* __restrict__ e_part,
   __shared__ float s[2][NT];
   __shared__ int sn[NT];
   const int t = threadIdx.x;
+  e_part += (size_t)2 * nblk * blockIdx.x;
+  n_part += (size_t)nblk * blockIdx.x;
+  e_out += 2 * blockIdx.x;
+  n_out += blockIdx.x;
   float a = 0.f, b = 0.f;
   int n = 0;
   for (int k = t; k < nblk; k += NT) {
@@ -543,7 +557,7 @@ energy_sum_kernel(const float* __restrict__ e_part,
 // launch both kernels
 template <bool MULTI>
 int launch(const float* wx, const float* box, float* f, float* e_part,
-           int* n_part, float* e_out, int* n_out, const WWParams& p,
+           int* n_part, float* e_out, int* n_out, const WWParams& p, int R,
            size_t smem, cudaStream_t s) {
   static size_t smem_allowed = 0;
   cudaError_t err;
@@ -558,12 +572,12 @@ int launch(const float* wx, const float* box, float* f, float* e_part,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz);
+  const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz, R);
   ww_pair_kernel<MULTI><<<grid, NT, smem, s>>>(wx, box, f, e_part, n_part,
                                                p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  energy_sum_kernel<<<1, NT, 0, s>>>(e_part, n_part, grid.x * grid.y,
+  energy_sum_kernel<<<R, NT, 0, s>>>(e_part, n_part, grid.x * grid.y,
                                      e_out, n_out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -574,7 +588,8 @@ extern "C" {
 
 int ww_pair_param_count() { return P_COUNT; }
 
-// blocks of the pair kernel: the caller allocates 3 scratch words each
+// blocks of the pair kernel a replica: the caller allocates 3 scratch
+// words each
 int ww_pair_blocks(int G, int W) { return G * blocks_per_cell(W); }
 
 // bytes of dynamic shared memory a block of the pair kernel takes when the
@@ -583,14 +598,15 @@ int ww_pair_smem_bytes(int W, int passes) {
   return static_cast<int>(smem_bytes(W, passes));
 }
 
-// Launches both kernels on `stream`, the stencil staged in `passes` (1:
-// all 27 segments at once); returns the CUDA error (0 = ok).
-// e_part: 2 floats per block, n_part: 1 int per block (scratch);
-// e_out: (e_lj, e_coul); n_out: atom pairs evaluated.
+// Launches both kernels on `stream` for R replicas, the stencil staged in
+// `passes` (1: all 27 segments at once); returns the CUDA error (0 = ok).
+// e_part: 2 floats per block, n_part: 1 int per block (scratch, R *
+// ww_pair_blocks each); e_out: (R, 2) (e_lj, e_coul); n_out: (R,) atom
+// pairs evaluated.
 int ww_pair_forward(const float* wx, const float* box, float* f,
                     float* e_part, int* n_part, float* e_out, int* n_out,
                     int gx, int gy, int gz, int W, const float* prm,
-                    int dsf, int passes, void* stream) {
+                    int dsf, int passes, int R, void* stream) {
   WWParams p;
   for (int k = 0; k < NCOEF; ++k) {
     p.c1[k] = prm[P_C1 + k];
@@ -618,8 +634,10 @@ int ww_pair_forward(const float* wx, const float* box, float* f,
   const size_t smem = smem_bytes(W, passes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (passes > 1)
-    return launch<true>(wx, box, f, e_part, n_part, e_out, n_out, p, smem, s);
-  return launch<false>(wx, box, f, e_part, n_part, e_out, n_out, p, smem, s);
+    return launch<true>(wx, box, f, e_part, n_part, e_out, n_out, p, R, smem,
+                        s);
+  return launch<false>(wx, box, f, e_part, n_part, e_out, n_out, p, R, smem,
+                       s);
 }
 
 }  // extern "C"

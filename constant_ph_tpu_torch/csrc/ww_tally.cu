@@ -8,11 +8,12 @@
 // erfc from _erfc_pos). Plain PyTorch version of the same function:
 // tiled/forces.py water_water_tally_plain.
 //
-// Function: packed tiles wt (G, 8, A) float32 contiguous, G = gx*gy*gz
-// cells, A = 3W slots (O, H1, H2 of molecule k in slots 3k, 3k+1, 3k+2;
-// rows x, y, z, charge, LJ mask, validity, 0, 0), and box (3,) on the
-// device -> out (G, 8, A): per slot force x, y, z, eatom_lj, eatom_coul,
-// phi, 0, 0; count = the atom pairs evaluated. For each cell, all 27
+// Function, for each of R replicas (a batch; R = 1 for one state): packed
+// tiles wt (R, G, 8, A) float32 contiguous, G = gx*gy*gz cells, A = 3W
+// slots (O, H1, H2 of molecule k in slots 3k, 3k+1, 3k+2; rows x, y, z,
+// charge, LJ mask, validity, 0, 0), and box (R, 3) on the device -> out
+// (R, G, 8, A): per slot force x, y, z, eatom_lj, eatom_coul, phi, 0, 0;
+// count (R,) = the atom pairs evaluated. For each cell, all 27
 // neighbour offsets (the cell itself at offset 13) with i-side-only sums:
 //   - per-pair minimum image, dx -= L * rint(dx / L) (round half to even,
 //     as jnp.round);
@@ -69,9 +70,13 @@
 // and half-width. Then each warp tests only that list against its own i
 // molecule.
 //
-// Layout. Grid (ceil(W / 12), G): a block of 12 warps takes 12 molecules
-// of a cell, one i molecule per warp (1,080 blocks at the 6^3 production
-// grid and W = 52). A block whose 12 molecules are all parked writes
+// Layout. Grid (ceil(W / 12), G, R): a block of 12 warps takes 12
+// molecules of a cell of one replica, one i molecule per warp (1,080
+// blocks a replica at the 6^3 production grid and W = 52). blockIdx.z
+// picks the replica: a block offsets wt, box, out and count by it and
+// does nothing else differently, so a batched launch gives each replica
+// bit for bit what a launch on that replica alone gives. R <= 65535
+// (gridDim.z). A block whose 12 molecules are all parked writes
 // zeros and stops before staging. Otherwise it stages the 6 used rows of
 // its cell's 27 tiles once (x, y, z, q, LJ mask, validity: 101 KB at A =
 // 156, 109 KB at A = 168, 148 KB at A = 228), copied with cp.async in
@@ -324,6 +329,12 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // this block's replica
+  const size_t rep_off = (size_t)blockIdx.z * p.gx * p.gy * p.gz * NROW * A;
+  wt += rep_off;
+  out += rep_off;
+  box += 3 * blockIdx.z;
+  count += blockIdx.z;
   const int m_first = blockIdx.x * WARPS;    // the block's i molecules
   const int m_end = m_first + WARPS < W ? m_first + WARPS : W;
   float* out_c = out + (size_t)cell * NROW * A;
@@ -566,7 +577,7 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
 
 template <bool DSF, bool SCREENED, bool MULTI>
 int launch(const float* wt, const float* box, float* out, int* count,
-           const TallyParams& p, size_t smem, cudaStream_t s) {
+           const TallyParams& p, int R, size_t smem, cudaStream_t s) {
   // raise the kernel's dynamic shared memory limit once per new maximum,
   // so that later calls (and a CUDA graph capturing them) only launch
   static size_t smem_allowed = 0;
@@ -582,9 +593,9 @@ int launch(const float* wt, const float* box, float* out, int* count,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  err = cudaMemsetAsync(count, 0, sizeof(int), s);
+  err = cudaMemsetAsync(count, 0, sizeof(int) * R, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz);
+  const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz, R);
   ww_tally_kernel<DSF, SCREENED, MULTI><<<grid, NT, smem, s>>>(
       wt, box, out, count, p);
   return static_cast<int>(cudaGetLastError());
@@ -592,11 +603,11 @@ int launch(const float* wt, const float* box, float* out, int* count,
 
 template <bool DSF, bool SCREENED>
 int launch_passes(const float* wt, const float* box, float* out, int* count,
-                  const TallyParams& p, int passes, cudaStream_t s) {
+                  const TallyParams& p, int passes, int R, cudaStream_t s) {
   const size_t smem = smem_bytes(p.W, passes);
   if (passes > 1)
-    return launch<DSF, SCREENED, true>(wt, box, out, count, p, smem, s);
-  return launch<DSF, SCREENED, false>(wt, box, out, count, p, smem, s);
+    return launch<DSF, SCREENED, true>(wt, box, out, count, p, R, smem, s);
+  return launch<DSF, SCREENED, false>(wt, box, out, count, p, R, smem, s);
 }
 
 }  // namespace
@@ -611,13 +622,13 @@ int ww_tally_smem_bytes(int W, int passes) {
   return static_cast<int>(smem_bytes(W, passes));
 }
 
-// Launches the kernel on `stream`, the stencil staged in `passes` (1: all
-// 27 offsets at once); returns the CUDA error (0 = ok). count: one int,
-// set to the atom pairs evaluated.
+// Launches the kernel on `stream` for R replicas, the stencil staged in
+// `passes` (1: all 27 offsets at once); returns the CUDA error (0 = ok).
+// count: R ints, each set to its replica's atom pairs evaluated.
 int ww_tally_forward(const float* wt, const float* box, float* out,
                      int* count, int gx, int gy, int gz, int W,
                      const float* prm, int dsf, int screened, int passes,
-                     void* stream) {
+                     int R, void* stream) {
   TallyParams p;
   p.c6 = prm[P_C6];
   p.c12 = prm[P_C12];
@@ -641,13 +652,13 @@ int ww_tally_forward(const float* wt, const float* box, float* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dsf)
     return screened ? launch_passes<true, true>(wt, box, out, count, p,
-                                                passes, s)
+                                                passes, R, s)
                     : launch_passes<true, false>(wt, box, out, count, p,
-                                                 passes, s);
+                                                 passes, R, s);
   return screened ? launch_passes<false, true>(wt, box, out, count, p,
-                                               passes, s)
+                                               passes, R, s)
                   : launch_passes<false, false>(wt, box, out, count, p,
-                                                passes, s);
+                                                passes, R, s);
 }
 
 }  // extern "C"

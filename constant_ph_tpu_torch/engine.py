@@ -111,11 +111,12 @@ class Observables:
     dUdlam: torch.Tensor     # (S,)
 
     @staticmethod
-    def stack(rows: list) -> "Observables":
-        """Stack per-step rows into one Observables with a leading step
-        axis (device tensors; nothing is copied to the host)."""
+    def stack(rows: list, dim: int = 0) -> "Observables":
+        """Stack per-step rows into one Observables with a step axis at
+        ``dim`` (0; 1 for rows of a replica batch, giving (R, T, …));
+        device tensors, nothing is copied to the host."""
         return Observables(**{
-            f.name: torch.stack([getattr(r, f.name) for r in rows])
+            f.name: torch.stack([getattr(r, f.name) for r in rows], dim=dim)
             for f in dataclasses.fields(Observables)})
 
 

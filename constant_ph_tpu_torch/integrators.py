@@ -46,7 +46,7 @@ def maxwell_boltzmann(generator: torch.Generator, mass, T,
 def _chain_masses(xi, ndof, kT, tau):
     # built on the device from scalars: item assignment of a Python float
     # into a CUDA tensor would synchronise
-    first = torch.arange(xi.shape[0], device=xi.device) == 0
+    first = torch.arange(xi.shape[-1], device=xi.device) == 0
     return torch.where(first, ndof * kT * tau * tau,
                        kT * tau * tau).to(xi.dtype)
 
@@ -54,8 +54,9 @@ def _chain_masses(xi, ndof, kT, tau):
 def nhc_halfstep(xi, ke2, ndof, kT, tau, dt):
     """Advance an M-link Nosé–Hoover chain a half step; return
     (scale, xi'). xi: (M,) chain velocities (1/fs); ke2 = 2·KE of the
-    coupled DOFs. Q1 = ndof·kT·τ², Qk = kT·τ²."""
-    M = xi.shape[0]
+    coupled DOFs. Q1 = ndof·kT·τ², Qk = kT·τ². With leading replica axes,
+    xi (…, M) and ke2 (…): one chain a replica, scale (…)."""
+    M = xi.shape[-1]
     Q = _chain_masses(xi, ndof, kT, tau)
     dt2 = 0.5 * dt
     dt4 = 0.25 * dt
@@ -73,18 +74,18 @@ def nhc_halfstep(xi, ke2, ndof, kT, tau, dt):
             f = torch.exp(-dt4 * 0.5 * x[k + 1])
             x[k] = f * (f * x[k] + dt4 * g)
 
-    xs = list(xi.unbind(0))
+    xs = list(xi.unbind(-1))
     for k in range(M - 1, -1, -1):
         update(k, ke2, xs)
     scale = torch.exp(-dt2 * xs[0])
     ke2 = ke2 * scale * scale
     for k in range(M):
         update(k, ke2, xs)
-    return scale, torch.stack(xs)
+    return scale, torch.stack(xs, dim=-1)
 
 
 def nhc_energy(xi, ndof, kT, tau):
     """Thermostat kinetic contribution ½ Σ Q ξ² to the conserved
     quantity."""
     Q = _chain_masses(xi, ndof, kT, tau)
-    return 0.5 * torch.sum(Q * xi * xi)
+    return 0.5 * torch.sum(Q * xi * xi, dim=-1)

@@ -8,6 +8,9 @@ corrections).
 - charges q(λ) = q0 + Σ_s λ_s·dq_s (buffer atoms keep each site neutral)
 - exact dU_elec/dλ = Σ_i φ_i·dq_i/dλ
 - multi-site tables from single-site specs (``stack_sites``)
+
+λ arrays may carry leading replica axes, (…, S); a per-replica pH then
+comes shaped (…, 1), so it broadcasts over the sites.
 """
 from __future__ import annotations
 
@@ -136,15 +139,20 @@ def stack_sites(specs: list) -> LambdaSpec:
 
 
 def charges(q0, spec: LambdaSpec, lam):
-    """q(λ) = q0 + Σ_s λ_s·dq_s (q0 is the all-protonated charge vector)."""
-    contrib = (lam[:, None] * spec.dq * spec.atom_mask).reshape(-1)
-    return q0.index_add(0, spec.atom_idx.reshape(-1), contrib.to(q0.dtype))
+    """q(λ) = q0 + Σ_s λ_s·dq_s (q0 is the all-protonated charge vector);
+    λ (…, S) → q (…, N)."""
+    lead = lam.shape[:-1]
+    contrib = (lam[..., :, None] * spec.dq * spec.atom_mask).reshape(
+        lead + (-1,))
+    q = q0.expand(lead + q0.shape).clone()
+    return q.index_add_(-1, spec.atom_idx.reshape(-1), contrib.to(q0.dtype))
 
 
 def dq_dlambda_dot(spec: LambdaSpec, phi):
     """Exact electrostatic dU/dλ_s = Σ_i φ_i·dq_i/dλ_s per site (φ is
-    ∂U_elec/∂q_i)."""
-    return torch.sum(phi[spec.atom_idx] * spec.dq * spec.atom_mask, dim=-1)
+    ∂U_elec/∂q_i); φ (…, N) → (…, S)."""
+    return torch.sum(phi[..., spec.atom_idx] * spec.dq * spec.atom_mask,
+                     dim=-1)
 
 
 def ph_energy(lam, spec: LambdaSpec, pH, T: float, p: BiasParams):
@@ -172,8 +180,10 @@ def analytic_lambda_force(lam, spec: LambdaSpec, pH, T: float,
 
 
 def lambda_kinetic(v_lambda, spec: LambdaSpec):
-    """Σ ½ m_λ v_λ² in kcal/mol (v_λ in 1/fs, m_λ in (g/mol)·Å²)."""
-    return 0.5 * units.MVV2E * torch.sum(spec.m_lambda * v_lambda * v_lambda)
+    """Σ ½ m_λ v_λ² in kcal/mol (v_λ in 1/fs, m_λ in (g/mol)·Å²), per
+    replica."""
+    return 0.5 * units.MVV2E * torch.sum(spec.m_lambda * v_lambda * v_lambda,
+                                         dim=-1)
 
 
 def lambda_temperature(v_lambda, spec: LambdaSpec):

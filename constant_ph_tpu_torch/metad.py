@@ -9,9 +9,10 @@ Per titratable site s, independent 1-D well-tempered hills:
 
 The bias rides on a fixed λ grid as (V, dV/dλ) value tables, both updated
 analytically on deposit, so the in-step bias force is a linear
-interpolation (``lookup``). Tables are (S, nbins) tensors; every function
-runs on the device of its inputs and never reads a value back to the
-host.
+interpolation (``lookup``). Tables are (S, nbins) tensors, (R, S, nbins)
+for a batch of R walkers with λ (R, S) (``lookup``, ``deposit``); every
+function runs on the device of its inputs and never reads a value back to
+the host.
 
 The pooled estimators take the switching slope as an argument; callers
 pass the installed ``BiasParams.switch_slope`` (the JAX package's
@@ -122,7 +123,7 @@ def lookup(V, dV, lam, p: MetadParams):
     f = torch.clamp(u - i0.to(lam.dtype), 0.0, 1.0)
 
     def take(A, i):
-        return torch.gather(A, 1, i[:, None])[:, 0]
+        return torch.gather(A, -1, i[..., None])[..., 0]
 
     v = take(V, i0) * (1.0 - f) + take(V, i0 + 1) * f
     dv = take(dV, i0) * (1.0 - f) + take(dV, i0 + 1) * f

@@ -1,8 +1,11 @@
 """Holonomic constraints: M-SHAKE / M-RATTLE for rigid triatomics (port of
 constant_ph_tpu/ops/constraints.py). Every molecule is solved in parallel
 with Cramer 3×3 solves; the incidence matrix is ±1/0, so bond vectors are
-plain differences and no matmul (and no TF32) is involved."""
+plain differences and no matmul (and no TF32) is involved. Positions and
+velocities may carry leading replica axes (x (…, N, 3), box (…, 3))."""
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -120,11 +123,18 @@ class RigidTriatomic:
     def n_constraints(self) -> int:
         return 3 * self.triplets.shape[0]
 
+    def to(self, device) -> "RigidTriatomic":
+        """A copy with its tables on ``device``."""
+        out = copy.copy(self)
+        for name in ("triplets", "_d2", "W", "inv_m"):
+            setattr(out, name, getattr(self, name).to(device))
+        return out
+
     def _gather_local(self, x, box):
         """Molecule positions unwrapped into the center atom's image."""
-        xm = x[self.triplets]                 # (M, 3, 3)
-        center = xm[:, :1, :]
-        return center + min_image(xm - center, box)
+        xm = x[..., self.triplets, :]         # (…, M, 3, 3)
+        center = xm[..., :1, :]
+        return center + min_image(xm - center, box[..., None, None, :])
 
     def positions(self, x_ref, x, v, box, dt):
         """M-SHAKE: moves x onto the constraint manifold along the
@@ -133,12 +143,14 @@ class RigidTriatomic:
                              self._gather_local(x_ref, box),
                              self.inv_m, self.W, self._d2, self.n_newton)
         flat = self.triplets.reshape(-1)
-        delta = delta.reshape(-1, 3)
-        return x.index_add(0, flat, delta), v.index_add(0, flat, delta / dt)
+        delta = delta.reshape(delta.shape[:-3] + (-1, 3))
+        return (x.index_add(-2, flat, delta),
+                v.index_add(-2, flat, delta / dt))
 
     def velocities(self, x, v, box):
         """M-RATTLE: one exact 3×3 solve removes all velocity components
         along constraint directions."""
-        dv = mrattle_dv(self._gather_local(x, box), v[self.triplets],
+        dv = mrattle_dv(self._gather_local(x, box), v[..., self.triplets, :],
                         self.inv_m, self.W)
-        return v.index_add(0, self.triplets.reshape(-1), dv.reshape(-1, 3))
+        return v.index_add(-2, self.triplets.reshape(-1),
+                           dv.reshape(dv.shape[:-3] + (-1, 3)))

@@ -111,65 +111,69 @@ def ewald_recip(x, q, ep: EwaldParams):
 
 
 def ewald_recip_xd(xd, q, ep: EwaldParams):
-    """ewald_recip on a tuple of 3 per-dimension (M,) coordinate arrays
+    """ewald_recip on a tuple of 3 per-dimension (N,) coordinate arrays
     (the tiled path's layout); forces come back as a per-dimension
-    tuple."""
+    tuple. Coordinates and charges may carry leading replica axes, (…, N):
+    energies are then (…,), one a replica."""
     (exr, exi), (eyr, eyi), (ezr, ezi) = (
         (torch.cos(a), torch.sin(a))
-        for a in (xd[d][:, None] * k[None, :]
+        for a in (xd[d][..., :, None] * k
                   for d, k in enumerate((ep.kx, ep.ky, ep.kz))))
 
-    # T1 = Ey ⊙ Ez by broadcast outer products, (N, My·Mz)
-    n = q.shape[0]
-    My, Mz = eyr.shape[1], ezr.shape[1]
-    t1r = (eyr[:, :, None] * ezr[:, None, :]
-           - eyi[:, :, None] * ezi[:, None, :]).reshape(n, My * Mz)
-    t1i = (eyr[:, :, None] * ezi[:, None, :]
-           + eyi[:, :, None] * ezr[:, None, :]).reshape(n, My * Mz)
+    # T1 = Ey ⊙ Ez by broadcast outer products, (…, N, My·Mz)
+    lead_n = q.shape
+    My, Mz = eyr.shape[-1], ezr.shape[-1]
+    t1r = (eyr[..., :, None] * ezr[..., None, :]
+           - eyi[..., :, None] * ezi[..., None, :]).reshape(
+               lead_n + (My * Mz,))
+    t1i = (eyr[..., :, None] * ezi[..., None, :]
+           + eyi[..., :, None] * ezr[..., None, :]).reshape(
+               lead_n + (My * Mz,))
 
     # S[nx, yz] = Σ_i q_i Ex[i,nx] T1[i,yz], with the Mx-side operands
     # stacked so each (N, My·Mz) array is read once a matmul
-    Mx = exr.shape[1]
-    qex = torch.cat([q[:, None] * exr, q[:, None] * exi], dim=1)  # (N, 2Mx)
-    sr_si_r = qex.T @ t1r                                  # (2Mx, MyMz)
-    sr_si_i = qex.T @ t1i
-    sr = sr_si_r[:Mx] - sr_si_i[Mx:]
-    si = sr_si_i[:Mx] + sr_si_r[Mx:]
+    Mx = exr.shape[-1]
+    qex = torch.cat([q[..., None] * exr, q[..., None] * exi],
+                    dim=-1)                                # (…, N, 2Mx)
+    sr_si_r = qex.transpose(-1, -2) @ t1r                  # (…, 2Mx, MyMz)
+    sr_si_i = qex.transpose(-1, -2) @ t1i
+    sr = sr_si_r[..., :Mx, :] - sr_si_i[..., Mx:, :]
+    si = sr_si_i[..., :Mx, :] + sr_si_r[..., Mx:, :]
 
     A = ep.A
-    e_rec = torch.sum(A * (sr * sr + si * si))
+    e_rec = torch.sum(A * (sr * sr + si * si), dim=(-2, -1))
 
     # G = A·conj(S) and its k_y-, k_z-weighted variants in one operand;
     # k_x folds into the Ex contraction afterwards
     ky_yz = torch.repeat_interleave(ep.ky, Mz)     # (MyMz,), ij order
     kz_yz = ep.kz.repeat(My)
     gr0, gi0 = A * sr, -(A * si)
-    Gs = torch.cat([gr0, gi0, ky_yz[None, :] * gr0, ky_yz[None, :] * gi0,
-                    kz_yz[None, :] * gr0, kz_yz[None, :] * gi0], dim=0)
-    R = t1r @ Gs.T                                 # (N, 6Mx)
-    I = t1i @ Gs.T
+    Gs = torch.cat([gr0, gi0, ky_yz * gr0, ky_yz * gi0,
+                    kz_yz * gr0, kz_yz * gi0], dim=-2)    # (…, 6Mx, MyMz)
+    R = t1r @ Gs.transpose(-1, -2)                 # (…, N, 6Mx)
+    I = t1i @ Gs.transpose(-1, -2)
 
     def w_pair(s):
-        wr = R[:, s * Mx:(s + 1) * Mx] - I[:, (s + 1) * Mx:(s + 2) * Mx]
-        wi = I[:, s * Mx:(s + 1) * Mx] + R[:, (s + 1) * Mx:(s + 2) * Mx]
+        wr = R[..., s * Mx:(s + 1) * Mx] - I[..., (s + 1) * Mx:(s + 2) * Mx]
+        wi = I[..., s * Mx:(s + 1) * Mx] + R[..., (s + 1) * Mx:(s + 2) * Mx]
         return wr, wi
 
     w0r, w0i = w_pair(0)
-    phi = 2.0 * torch.sum(exr * w0r - exi * w0i, dim=1)
+    phi = 2.0 * torch.sum(exr * w0r - exi * w0i, dim=-1)
     # F_d = 2 q Σ_k A·k_d·Im[conj(S)·P]
-    fx = 2.0 * q * torch.sum(ep.kx[None, :] * (exr * w0i + exi * w0r), dim=1)
+    fx = 2.0 * q * torch.sum(ep.kx * (exr * w0i + exi * w0r), dim=-1)
     wyr, wyi = w_pair(2)
-    fy = 2.0 * q * torch.sum(exr * wyi + exi * wyr, dim=1)
+    fy = 2.0 * q * torch.sum(exr * wyi + exi * wyr, dim=-1)
     wzr, wzi = w_pair(4)
-    fz = 2.0 * q * torch.sum(exr * wzi + exi * wzr, dim=1)
+    fz = 2.0 * q * torch.sum(exr * wzi + exi * wzr, dim=-1)
 
     # self energy + neutralising background
     C = units.QQR2E
-    qsum = torch.sum(q)
-    e_self = -C * ep.alpha / _SQRT_PI * torch.sum(q * q)
+    qsum = torch.sum(q, dim=-1)
+    e_self = -C * ep.alpha / _SQRT_PI * torch.sum(q * q, dim=-1)
     e_bg = -C * np.pi / (2.0 * ep.alpha**2 * ep.volume) * qsum * qsum
     phi = phi - 2.0 * C * ep.alpha / _SQRT_PI * q \
-        - C * np.pi / (ep.alpha**2 * ep.volume) * qsum
+        - C * np.pi / (ep.alpha**2 * ep.volume) * qsum[..., None]
     return e_rec + e_self + e_bg, (fx, fy, fz), phi, 0.5 * q * phi
 
 

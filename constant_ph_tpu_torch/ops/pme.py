@@ -25,6 +25,10 @@ interpolation contractions; here every matmul and einsum runs in full
 float32, with TF32 off (make_pme_params and the tiled engine set
 ``torch.backends.cuda.matmul.allow_tf32 = False``), and the FFTs are
 float32 (cuFFT on the GPU). PME has no hand kernel: it is PyTorch ops.
+
+``pme_recip_tiled`` takes a batch of R replicas (a leading R on the
+tiles, solute arrays and live box; one mesh and one FFT pair a replica,
+all in the same launches); one replica's arrays run as a batch of one.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import resolve_device, units
+from constant_ph_tpu_torch.batching import bview, replica_batched
 
 _SQRT_PI = 1.7724538509055159
 
@@ -143,18 +148,21 @@ def make_pme_params(box, cell_grid, alpha: float, *, spacing: float = 0.9,
 
 def pme_influence(pp: PMEParams, box):
     """(Âhat, mesh spacing, volume) from the LIVE box (device math; the
-    NPT path). The mesh shape (grid, m, p, h) stays the build-time one."""
-    V = box[0] * box[1] * box[2]
-    kx = (2.0 * math.pi) * pp.nx / box[0]
-    ky = (2.0 * math.pi) * pp.ny / box[1]
-    kz = (2.0 * math.pi) * pp.nzr / box[2]
-    k2 = ((kx * kx)[:, None, None] + (ky * ky)[None, :, None]
-          + (kz * kz)[None, None, :])
+    NPT path). The mesh shape (grid, m, p, h) stays the build-time one.
+    box (…, 3) with leading replica axes gives one Âhat (…, Mx, My,
+    Mz//2+1), spacing and volume (…,) a replica."""
+    V = box[..., 0] * box[..., 1] * box[..., 2]
+    kx = (2.0 * math.pi) * pp.nx / box[..., 0:1]
+    ky = (2.0 * math.pi) * pp.ny / box[..., 1:2]
+    kz = (2.0 * math.pi) * pp.nzr / box[..., 2:3]
+    k2 = ((kx * kx)[..., :, None, None] + (ky * ky)[..., None, :, None]
+          + (kz * kz)[..., None, None, :])
     A = torch.where(k2 > 1e-12,
                     torch.exp(-k2 / (4.0 * pp.alpha * pp.alpha))
                     / torch.clamp(k2, min=1e-12), 0.0)
-    A = A * (units.QQR2E * 2.0 * math.pi / V) * pp.binv
-    sp = tuple(box[d] / pp.mesh[d] for d in range(3))
+    A = A * (units.QQR2E * 2.0 * math.pi / V)[..., None, None, None] \
+        * pp.binv
+    sp = tuple(box[..., d] / pp.mesh[d] for d in range(3))
     return A.to(pp.Ahat.dtype), sp, V
 
 
@@ -180,31 +188,33 @@ def _cell_factors(wxg, sp, g, m, h, p):
     the blocks of all axes, concatenated along the mesh axis: the same
     arithmetic per element, a third of the launches).
 
-    wxg: (3, gx, gy, gz, A) atom coords. Returns (Bd, dBd): per dimension
-    d, (gx, gy, gz, ext_d, A) with ext_d = m_d + 2·h_d."""
+    wxg: (R, 3, gx, gy, gz, A) atom coords; sp: per-dim spacings (numbers,
+    or (R,) tensors on a live box). Returns (Bd, dBd): per dimension d,
+    (R, gx, gy, gz, ext_d, A) with ext_d = m_d + 2·h_d."""
     dtype, dev = wxg.dtype, wxg.device
+    R = wxg.shape[0]
     ts = []
     for d in range(3):
-        u = wxg[d] / sp[d]
+        u = wxg[:, d] / bview(sp[d], 5)
         base = (torch.arange(g[d], dtype=dtype, device=dev) * m[d])[:, None]
         jgrid = base + torch.arange(-h[d], m[d] + h[d], dtype=dtype,
                                     device=dev)[None, :]
         shape = [1, 1, 1, jgrid.shape[1], 1]
         shape[d] = g[d]
         ts.append((u[..., None, :] - jgrid.reshape(shape) + p / 2.0)
-                  .expand(*g, jgrid.shape[1], u.shape[-1]))
+                  .expand(R, *g, jgrid.shape[1], u.shape[-1]))
     ext = [m[d] + 2 * h[d] for d in range(3)]
-    B, dB = _mp_and_deriv(torch.cat(ts, dim=3), p)
-    return torch.split(B, ext, dim=3), torch.split(dB, ext, dim=3)
+    B, dB = _mp_and_deriv(torch.cat(ts, dim=4), p)
+    return torch.split(B, ext, dim=4), torch.split(dB, ext, dim=4)
 
 
 def _overlap_add(Qext, g, m, h):
-    """(gx, gy, gz, ex, ey, ez) extended blocks → (Mx, My, Mz) mesh
+    """(R, gx, gy, gz, ex, ey, ez) extended blocks → (R, Mx, My, Mz) mesh
     (periodic). Each block's halo tail lands on the head of the next
     cell's block and its halo head on the tail of the previous one."""
     out = Qext
     for d in range(3):
-        cell_ax, mesh_ax = d, 3 + d
+        cell_ax, mesh_ax = 1 + d, 4 + d
         own = out.narrow(mesh_ax, h[d], m[d])
         tail = torch.roll(out.narrow(mesh_ax, m[d] + h[d], h[d]), 1,
                           dims=cell_ax)
@@ -216,18 +226,18 @@ def _overlap_add(Qext, g, m, h):
         res.narrow(mesh_ax, m[d] - h[d], h[d]).add_(head)
         out = res
     gx, gy, gz = g
-    out = out.permute(0, 3, 1, 4, 2, 5)
-    return out.reshape(gx * m[0], gy * m[1], gz * m[2])
+    out = out.permute(0, 1, 4, 2, 5, 3, 6)
+    return out.reshape(out.shape[0], gx * m[0], gy * m[1], gz * m[2])
 
 
 def _extract_blocks(mesh, g, m, h):
-    """(Mx, My, Mz) mesh → (gx, gy, gz, ex, ey, ez) extended blocks
+    """(R, Mx, My, Mz) mesh → (R, gx, gy, gz, ex, ey, ez) extended blocks
     (periodic)."""
     gx, gy, gz = g
-    blk = mesh.reshape(gx, m[0], gy, m[1], gz, m[2]).permute(
-        0, 2, 4, 1, 3, 5)
+    blk = mesh.reshape(mesh.shape[0], gx, m[0], gy, m[1], gz, m[2]).permute(
+        0, 1, 3, 5, 2, 4, 6)
     for d in range(3):
-        cell_ax, mesh_ax = d, 3 + d
+        cell_ax, mesh_ax = 1 + d, 4 + d
         prev_tail = torch.roll(blk, 1, dims=cell_ax).narrow(
             mesh_ax, m[d] - h[d], h[d])
         next_head = torch.roll(blk, -1, dims=cell_ax).narrow(mesh_ax, 0, h[d])
@@ -236,25 +246,29 @@ def _extract_blocks(mesh, g, m, h):
 
 
 def _solute_factors(s_mod, M, p):
-    """Per dimension d, (M_d, Ns) B-spline factors of the solute atoms
-    against the full mesh, with the periodic images at ±M_d; s_mod: (3,
-    Ns) coords in mesh units. The three dimensions and three images go
+    """Per dimension d, (R, M_d, Ns) B-spline factors of the solute atoms
+    against the full mesh, with the periodic images at ±M_d; s_mod: (R,
+    3, Ns) coords in mesh units. The three dimensions and three images go
     through one evaluation; the images are added in the order −M, 0, +M."""
     dtype, dev = s_mod.dtype, s_mod.device
-    t = torch.cat([s_mod[d][None, :]
+    t = torch.cat([s_mod[:, d, None, :]
                    - torch.arange(M[d], dtype=dtype, device=dev)[:, None]
-                   + p / 2.0 for d in range(3)])          # (ΣM_d, Ns)
+                   + p / 2.0 for d in range(3)], dim=1)   # (R, ΣM_d, Ns)
     shift = torch.cat([torch.full((M[d], 1), float(M[d]), dtype=dtype,
                                   device=dev) for d in range(3)])
     mp, dmp = _mp_and_deriv(torch.stack([t - shift, t, t + shift]), p)
-    b = torch.split(mp[0] + mp[1] + mp[2], M)
-    db = torch.split(dmp[0] + dmp[1] + dmp[2], M)
+    b = torch.split(mp[0] + mp[1] + mp[2], M, dim=1)
+    db = torch.split(dmp[0] + dmp[1] + dmp[2], M, dim=1)
     return b, db
 
 
+@replica_batched(5)
 def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
                     need_water_phi: bool = False, box=None):
     """Reciprocal + self + background electrostatics on tiles + solute.
+
+    One replica's shapes below; a batch adds a leading R to each array
+    and to ``box`` (R, 3), and returns e (R,).
 
     wxg: (3, gx, gy, gz, A) water coords (box-wrapped; parked pads OK);
     wq: (gx, gy, gz, A) water charges (0 on invalid slots); sx: (Ns, 3)
@@ -266,8 +280,10 @@ def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
     g, m, h, p = pp.grid, pp.m, pp.h, pp.p
     gx, gy, gz = g
     M = pp.mesh
+    R = wxg.shape[0]
     if box is None:
-        sp, Ahat, volume, boxv = pp.spacing, pp.Ahat, pp.volume, pp.box
+        sp, Ahat, volume = pp.spacing, pp.Ahat, pp.volume
+        boxv = pp.box.expand(R, 3)
     else:
         Ahat, sp, volume = pme_influence(pp, box)
         boxv = box
@@ -277,72 +293,80 @@ def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
     ex, ey, ez = (m[d] + 2 * h[d] for d in range(3))
     A_at = wq.shape[-1]
 
-    # (By ⊙ Bz) ⊙ q, the largest intermediate (G·ey·ez·A floats), made once
-    # and scaled by q in place
+    # (By ⊙ Bz) ⊙ q, the largest intermediate (R·G·ey·ez·A floats), made
+    # once and scaled by q in place
     tyz_q = Bd[1][..., :, None, :] * Bd[2][..., None, :, :]  # (...,ey,ez,A)
     tyz_q.mul_(wq[..., None, None, :])
-    tyz_q = tyz_q.reshape(gx, gy, gz, ey * ez, A_at)
+    tyz_q = tyz_q.reshape(R, gx, gy, gz, ey * ez, A_at)
     Qext = torch.matmul(Bd[0], tyz_q.transpose(-1, -2))      # (...,ex,ey*ez)
-    Q = _overlap_add(Qext.reshape(gx, gy, gz, ex, ey, ez), g, m, h)
+    Q = _overlap_add(Qext.reshape(R, gx, gy, gz, ex, ey, ez), g, m, h)
 
     # ---- solute spreading (dense over the full mesh; Ns is small) ----
-    Ns = qs.shape[0]
+    Ns = qs.shape[-1]
     sb, sdb = _solute_factors(torch.stack(
-        [torch.remainder(sx[:, d], boxv[d]) / sp[d] for d in range(3)]),
-        M, p)
-    tyz_s = (sb[1][:, None, :] * sb[2][None, :, :]).reshape(M[1] * M[2], Ns)
-    Qs = torch.matmul(sb[0] * qs[None, :], tyz_s.T).reshape(M[0], M[1], M[2])
+        [torch.remainder(sx[..., d], boxv[:, d:d + 1]) / bview(sp[d], 2)
+         for d in range(3)], dim=1), M, p)
+    tyz_s = (sb[1][:, :, None, :] * sb[2][:, None, :, :]).reshape(
+        R, M[1] * M[2], Ns)
+    Qs = torch.matmul(sb[0] * qs[:, None, :],
+                      tyz_s.transpose(-1, -2)).reshape(R, M[0], M[1], M[2])
     Q = Q + Qs
 
     # ---- k-space convolution: φ_mesh = ∂E/∂Q = 2·M³·irfftn(Ahat ⊙ Q̂) ----
-    Qhat = torch.fft.rfftn(Q)
+    mesh_dims = (-3, -2, -1)
+    Qhat = torch.fft.rfftn(Q, dim=mesh_dims)
     n_mesh = M[0] * M[1] * M[2]
-    phi_mesh = (2.0 * n_mesh) * torch.fft.irfftn(Ahat * Qhat, s=M)
-    e_rec = 0.5 * torch.sum(Q * phi_mesh)
+    phi_mesh = (2.0 * n_mesh) * torch.fft.irfftn(Ahat * Qhat, s=M,
+                                                 dim=mesh_dims)
+    e_rec = 0.5 * torch.sum(Q * phi_mesh, dim=mesh_dims)
 
     # ---- interpolation: forces (+ φ where needed) ----
-    blk2 = _extract_blocks(phi_mesh, g, m, h).reshape(gx, gy, gz, ex,
+    blk2 = _extract_blocks(phi_mesh, g, m, h).reshape(R, gx, gy, gz, ex,
                                                       ey * ez)
     V0 = torch.matmul(Bd[0].transpose(-1, -2), blk2)        # (...,A,ey*ez)
     V1 = torch.matmul(dBd[0].transpose(-1, -2), blk2)
-    V0 = V0.reshape(gx, gy, gz, A_at, ey, ez)
-    V1 = V1.reshape(gx, gy, gz, A_at, ey, ez)
+    V0 = V0.reshape(R, gx, gy, gz, A_at, ey, ez)
+    V1 = V1.reshape(R, gx, gy, gz, A_at, ey, ez)
     W00 = torch.einsum("...ya,...ayz->...az", Bd[1], V0)
     W10 = torch.einsum("...ya,...ayz->...az", Bd[1], V1)
     W01 = torch.einsum("...ya,...ayz->...az", dBd[1], V0)
     sx_sum = torch.einsum("...za,...az->...a", Bd[2], W10)
     sy_sum = torch.einsum("...za,...az->...a", Bd[2], W01)
     sz_sum = torch.einsum("...za,...az->...a", dBd[2], W00)
-    fw = torch.stack([-wq * sx_sum / sp[0], -wq * sy_sum / sp[1],
-                      -wq * sz_sum / sp[2]])
+    fw = torch.stack([-wq * sx_sum / bview(sp[0], 5),
+                      -wq * sy_sum / bview(sp[1], 5),
+                      -wq * sz_sum / bview(sp[2], 5)], dim=1)
     phi_w = None
     if need_water_phi:
         phi_w = torch.einsum("...za,...az->...a", Bd[2], W00)
 
     # solute interpolation
-    phi_flat = phi_mesh.reshape(M[0], M[1] * M[2])
-    U0 = torch.matmul(sb[0].T, phi_flat).reshape(Ns, M[1], M[2])
-    U1 = torch.matmul(sdb[0].T, phi_flat).reshape(Ns, M[1], M[2])
-    R00 = torch.einsum("ya,ayz->az", sb[1], U0)
-    R10 = torch.einsum("ya,ayz->az", sb[1], U1)
-    R01 = torch.einsum("ya,ayz->az", sdb[1], U0)
-    phi_s = torch.einsum("za,az->a", sb[2], R00)
+    phi_flat = phi_mesh.reshape(R, M[0], M[1] * M[2])
+    U0 = torch.matmul(sb[0].transpose(-1, -2), phi_flat).reshape(
+        R, Ns, M[1], M[2])
+    U1 = torch.matmul(sdb[0].transpose(-1, -2), phi_flat).reshape(
+        R, Ns, M[1], M[2])
+    R00 = torch.einsum("rya,rayz->raz", sb[1], U0)
+    R10 = torch.einsum("rya,rayz->raz", sb[1], U1)
+    R01 = torch.einsum("rya,rayz->raz", sdb[1], U0)
+    phi_s = torch.einsum("rza,raz->ra", sb[2], R00)
     fs = torch.stack([
-        -qs * torch.einsum("za,az->a", sb[2], R10) / sp[0],
-        -qs * torch.einsum("za,az->a", sb[2], R01) / sp[1],
-        -qs * torch.einsum("za,az->a", sdb[2], R00) / sp[2],
+        -qs * torch.einsum("rza,raz->ra", sb[2], R10) / bview(sp[0], 2),
+        -qs * torch.einsum("rza,raz->ra", sb[2], R01) / bview(sp[1], 2),
+        -qs * torch.einsum("rza,raz->ra", sdb[2], R00) / bview(sp[2], 2),
     ], dim=-1)
 
     # ---- self energy + neutralising background (as in ops.ewald) ----
     C = units.QQR2E
-    qsum = torch.sum(wq) + torch.sum(qs)
-    q2sum = torch.sum(wq * wq) + torch.sum(qs * qs)
+    qsum = torch.sum(wq.flatten(1), dim=-1) + torch.sum(qs, dim=-1)
+    q2sum = (torch.sum((wq * wq).flatten(1), dim=-1)
+             + torch.sum(qs * qs, dim=-1))
     e_self = -C * pp.alpha / _SQRT_PI * q2sum
     e_bg = -C * math.pi / (2.0 * pp.alpha**2 * volume) * qsum * qsum
     corr0 = -2.0 * C * pp.alpha / _SQRT_PI
     corr1 = -C * math.pi / (pp.alpha**2 * volume) * qsum
-    phi_s = phi_s + corr0 * qs + corr1
+    phi_s = phi_s + corr0 * qs + bview(corr1, 2)
     if need_water_phi:
-        phi_w = phi_w + corr0 * wq + corr1
+        phi_w = phi_w + corr0 * wq + bview(corr1, 5)
 
     return e_rec + e_self + e_bg, fw, fs, phi_s, phi_w

@@ -4,10 +4,12 @@ constant_ph_tpu/parallel/replica.py).
 Replicas are stacked states: every tensor field of a TiledState or
 SystemState (and of a NeighborList) gains a leading replica axis R
 (``stack_replicas``). The swap move, the health checks, the rollback and
-the metadynamics hill merge work on that stack. The run itself loops the
-engine's ``make_run`` over the replicas (the JAX package vmaps it), each
+the metadynamics hill merge work on that stack. On the tiled engine the
+stack is the engine's batch: one ``make_run`` call advances every replica
+with one sequence of launches (the JAX package's ``jax.vmap``), each
 replica drawing its Langevin noise from a ``torch.Generator`` of its own
-that the runner holds.
+that the runner holds. The reference engine's runner still loops its
+``make_run`` over the replicas, each with its own neighbour list.
 
 Swap move (even/odd alternating neighbour pairs, Metropolis): replicas
 keep their configurations and exchange pH values. The Hamiltonian depends
@@ -24,6 +26,7 @@ import dataclasses
 import torch
 
 from constant_ph_tpu_torch import lambda_dyn, resolve_device, units
+from constant_ph_tpu_torch.batching import replica_of
 from constant_ph_tpu_torch.engine import Observables
 
 
@@ -52,11 +55,8 @@ def stack_replicas(states: list):
 def unstack_replicas(batch) -> list:
     """The inverse of stack_replicas: one state per replica (views into
     the batch)."""
-    names = _tensor_fields(batch)
-    R = getattr(batch, names[0]).shape[0]
-    return [dataclasses.replace(batch, **{n: getattr(batch, n)[r]
-                                          for n in names})
-            for r in range(R)]
+    R = getattr(batch, _tensor_fields(batch)[0]).shape[0]
+    return [replica_of(batch, r) for r in range(R)]
 
 
 def _fold_in(seed: int, data: int) -> int:
@@ -144,19 +144,16 @@ def make_rex_runner_tiled(engine, md_steps_per_swap: int,
     ``generator`` draws the swap uniforms. Replica r's Langevin noise comes
     from ``block.generators[r]``: the list given, or one generator per
     replica made at the first call, seeded from (engine seed, r). Nothing
-    is read back to the host."""
+    is read back to the host. The R replicas run as one batch: one
+    ``make_run`` call a block."""
     run = engine.make_run(md_steps_per_swap)
 
     def block(states, generator, parity):
-        reps = unstack_replicas(states)
         if block.generators is None:
             block.generators = replica_generators(
-                [_fold_in(engine.cfg.seed, r) for r in range(len(reps))],
-                states.pH.device)
-        outs = [run(s, g) for s, g in zip(reps, block.generators)]
-        states = stack_replicas([o[0] for o in outs])
-        overflow = torch.stack([o[1] for o in outs])
-        obs = stack_replicas([o[2] for o in outs])          # (R, T, …)
+                [_fold_in(engine.cfg.seed, r)
+                 for r in range(states.pH.shape[0])], states.pH.device)
+        states, overflow, obs = run(states, block.generators)  # (R, T, …)
         states, accepted = swap_phs(states, generator, engine.bias, parity)
         last_obs = Observables(**{
             f.name: getattr(obs, f.name)[:, -1]

@@ -6,7 +6,10 @@
 - ``csrc/ww_tally.cu`` (``water_water_tally_cuda``) replaces
   ``make_ww_kernel``'s inner kernel (K2, the full-tally path).
 
-See the note at the top of each source for its design and bound. Each
+Both take a batch of R replicas in one launch (a leading replica axis on
+the tiles and the box; the grid's z dimension in the kernels); one
+replica's tiles run as a batch of one. See the note at the top of each
+source for its design and bound. Each
 source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, at first use, under ``constant_ph_tpu_torch/_build/``
 (named by a hash of the source and flags), and loaded with ctypes;
@@ -25,6 +28,7 @@ import subprocess
 import torch
 
 from constant_ph_tpu_torch import units
+from constant_ph_tpu_torch.batching import replica_batched
 from constant_ph_tpu_torch.tiled.layout import W_MAX
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,15 +91,15 @@ _ARGTYPES = {
         "ww_pair_blocks": [ctypes.c_int, ctypes.c_int],
         "ww_pair_smem_bytes": [ctypes.c_int, ctypes.c_int],
         "ww_pair_forward": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p]),
+                            + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p]),
     },
     "ww_tally": {
         "ww_tally_param_count": [],
         "ww_tally_smem_bytes": [ctypes.c_int, ctypes.c_int],
         "ww_tally_forward": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_void_p]),
+                             + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p]),
     },
 }
 
@@ -169,61 +173,74 @@ def _params(wm, style, alpha, rc):
     return (ctypes.c_float * len(vals))(*vals)
 
 
+# the most replicas a launch takes (the grid's z dimension)
+R_MAX = 65535
+
+
+@replica_batched(5)
 def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
-    """The water-water block on the GPU: (e_lj, e_coul, f) with f shaped
-    like wxg (3, gx, gy, gz, 3W), as tiled.forces.water_water_fast_plain.
-    Launches on the current stream without synchronising. The atom pairs
-    the kernel evaluated are left, as a 0-d int32 tensor on the device, in
+    """The water-water block on the GPU, one launch for a batch of R
+    replicas: wxg (R, 3, gx, gy, gz, 3W), box (R, 3) → (e_lj (R,), e_coul
+    (R,), f shaped like wxg), as tiled.forces.water_water_fast_plain; one
+    replica's (3, gx, gy, gz, 3W) and (3,) run as a batch of one. Launches
+    on the current stream without synchronising. The atom pairs the
+    kernel evaluated are left, as an (R,) int32 tensor on the device, in
     ``water_water_cuda.pairs_evaluated``, and the passes it staged the
     stencil in in ``water_water_cuda.passes`` (chosen from W by
     pass_count; ``passes`` forces a count, for checks only)."""
     gx, gy, gz = p.grid
     G, W = p.G, p.W
     A = 3 * W
+    R = wxg.shape[0]
     if min(p.grid) < 3:
         raise ValueError("the CUDA water-water kernel needs grid >= 3 per "
                          "dim (the stencil would alias)")
     if style not in ("dsf", "cut"):
         raise ValueError(f"unknown coulomb style {style!r}")
     if not (wxg.is_cuda and wxg.dtype == torch.float32
-            and wxg.is_contiguous() and wxg.numel() == 3 * G * A
-            and wxg.shape[0] == 3 and wxg.shape[-1] == A):
+            and wxg.is_contiguous() and wxg.numel() == R * 3 * G * A
+            and wxg.shape[1] == 3 and wxg.shape[-1] == A):
         raise ValueError("wxg must be a contiguous float32 CUDA tensor of "
-                         f"shape (3, {gx}, {gy}, {gz}, {A})")
+                         f"shape (R, 3, {gx}, {gy}, {gz}, {A})")
     if not (box.is_cuda and box.dtype == torch.float32
-            and box.is_contiguous() and tuple(box.shape) == (3,)):
-        raise ValueError("box must be a contiguous float32 CUDA tensor (3,)")
+            and box.is_contiguous() and tuple(box.shape) == (R, 3)):
+        raise ValueError("box must be a contiguous float32 CUDA tensor "
+                         "(R, 3)")
     # cp.async copies 16-byte pieces of every tile row; a candidate is
     # coded (segment << 8) | molecule
-    if W % 4 or W > W_MAX or wxg.data_ptr() % 16 or G > 65535:
+    if (W % 4 or W > W_MAX or wxg.data_ptr() % 16 or G > 65535
+            or R > R_MAX):
         raise ValueError(f"the kernel needs W % 4 == 0 and W <= {W_MAX}, a "
-                         f"16-byte aligned wxg and G <= 65535 (W={W}, "
-                         f"G={G})")
+                         f"16-byte aligned wxg, G <= 65535 and R <= {R_MAX} "
+                         f"(W={W}, G={G}, R={R})")
     lib = _lib("ww_pair")
     n_pass = pass_count(lib.ww_pair_smem_bytes, W, passes)
     dev = wxg.device
     f = torch.empty_like(wxg)
-    # one scratch buffer: e_out (2 floats), n_out (1 int), padding, then
-    # the per-block partials (2 floats and 1 int a block)
-    nblk = lib.ww_pair_blocks(G, W)
-    scratch = torch.empty(4 + 3 * nblk, dtype=torch.float32, device=dev)
+    # one scratch buffer: e_out (2R floats), n_out (R ints), padding to 16
+    # bytes, then the per-block partials (2 floats and 1 int a block)
+    nblk = R * lib.ww_pair_blocks(G, W)
+    head = -(-3 * R // 4) * 4
+    scratch = torch.empty(head + 3 * nblk, dtype=torch.float32, device=dev)
     base = scratch.data_ptr()
+    part = base + 4 * head
     prm = _params(wm, style, alpha, rc)
     err = lib.ww_pair_forward(
-        wxg.data_ptr(), box.data_ptr(), f.data_ptr(), base + 16,
-        base + 16 + 8 * nblk, base, base + 8, gx, gy, gz, W,
-        ctypes.addressof(prm), int(style == "dsf"), n_pass,
+        wxg.data_ptr(), box.data_ptr(), f.data_ptr(), part, part + 8 * nblk,
+        base, base + 8 * R, gx, gy, gz, W, ctypes.addressof(prm),
+        int(style == "dsf"), n_pass, R,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_pair kernel launch failed: CUDA error {err}")
     water_water_cuda.launches += 1
     water_water_cuda.passes = n_pass
-    water_water_cuda.pairs_evaluated = scratch[2:3].view(torch.int32)[0]
-    return scratch[0], scratch[1], f
+    water_water_cuda.pairs_evaluated = scratch[2 * R:3 * R].view(torch.int32)
+    e = scratch[:2 * R].view(R, 2)
+    return e[:, 0], e[:, 1], f
 
 
 water_water_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
-water_water_cuda.pairs_evaluated = None   # of the last launch
+water_water_cuda.pairs_evaluated = None   # (R,) of the last launch
 water_water_cuda.passes = None            # of the last launch
 
 
@@ -238,55 +255,60 @@ def _tally_params(wm, style, alpha, rc):
     return (ctypes.c_float * len(vals))(*vals)
 
 
+@replica_batched(5)
 def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
                            passes=None):
-    """The full-tally water-water kernel on the GPU: packed tiles wt
-    (gx, gy, gz, 8, A) and box (3,) → out (gx, gy, gz, 8, A), as
-    tiled.forces.water_water_tally_plain. Launches on the current stream
-    without synchronising. The atom pairs the kernel evaluated are left,
-    as a 0-d int32 tensor on the device, in
-    ``water_water_tally_cuda.pairs_evaluated``, and the passes it staged
-    the stencil in in ``water_water_tally_cuda.passes`` (chosen from W by
-    pass_count; ``passes`` forces a count, for checks only)."""
+    """The full-tally water-water kernel on the GPU, one launch for a
+    batch of R replicas: packed tiles wt (R, gx, gy, gz, 8, A) and box
+    (R, 3) → out shaped like wt, as tiled.forces.water_water_tally_plain;
+    one replica's (gx, gy, gz, 8, A) and (3,) run as a batch of one.
+    Launches on the current stream without synchronising. The atom pairs
+    the kernel evaluated are left, as an (R,) int32 tensor on the device,
+    in ``water_water_tally_cuda.pairs_evaluated``, and the passes it
+    staged the stencil in in ``water_water_tally_cuda.passes`` (chosen
+    from W by pass_count; ``passes`` forces a count, for checks only)."""
     gx, gy, gz = p.grid
     G, W = p.G, p.W
     A = 3 * W
+    R = wt.shape[0]
     if min(p.grid) < 3:
         raise ValueError("the CUDA full-tally kernel needs grid >= 3 per "
                          "dim (the 27 offsets must be distinct cells)")
     if style not in ("dsf", "cut"):
         raise ValueError(f"unknown coulomb style {style!r}")
     if not (wt.is_cuda and wt.dtype == torch.float32 and wt.is_contiguous()
-            and tuple(wt.shape) == (gx, gy, gz, 8, A)):
+            and tuple(wt.shape) == (R, gx, gy, gz, 8, A)):
         raise ValueError("wt must be a contiguous float32 CUDA tensor of "
-                         f"shape ({gx}, {gy}, {gz}, 8, {A})")
+                         f"shape (R, {gx}, {gy}, {gz}, 8, {A})")
     if not (box.is_cuda and box.dtype == torch.float32
-            and box.is_contiguous() and tuple(box.shape) == (3,)):
-        raise ValueError("box must be a contiguous float32 CUDA tensor (3,)")
+            and box.is_contiguous() and tuple(box.shape) == (R, 3)):
+        raise ValueError("box must be a contiguous float32 CUDA tensor "
+                         "(R, 3)")
     # cp.async copies 16-byte pieces of every tile row; a candidate is
     # coded (offset << 8) | molecule
-    if W % 4 or W > W_MAX or wt.data_ptr() % 16 or G > 65535:
+    if (W % 4 or W > W_MAX or wt.data_ptr() % 16 or G > 65535
+            or R > R_MAX):
         raise ValueError(f"the kernel needs W % 4 == 0 and W <= {W_MAX}, a "
-                         f"16-byte aligned wt and G <= 65535 (W={W}, "
-                         f"G={G})")
+                         f"16-byte aligned wt, G <= 65535 and R <= {R_MAX} "
+                         f"(W={W}, G={G}, R={R})")
     lib = _lib("ww_tally")
     n_pass = pass_count(lib.ww_tally_smem_bytes, W, passes)
     out = torch.empty_like(wt)
-    count = torch.empty(1, dtype=torch.int32, device=wt.device)
+    count = torch.empty(R, dtype=torch.int32, device=wt.device)
     prm = _tally_params(wm, style, alpha, rc)
     err = lib.ww_tally_forward(
         wt.data_ptr(), box.data_ptr(), out.data_ptr(), count.data_ptr(),
         gx, gy, gz, W, ctypes.addressof(prm), int(style == "dsf"),
-        int(alpha > 0.0), n_pass,
+        int(alpha > 0.0), n_pass, R,
         torch.cuda.current_stream(wt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_tally kernel launch failed: CUDA error {err}")
     water_water_tally_cuda.launches += 1
     water_water_tally_cuda.passes = n_pass
-    water_water_tally_cuda.pairs_evaluated = count[0]
+    water_water_tally_cuda.pairs_evaluated = count
     return out
 
 
 water_water_tally_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
-water_water_tally_cuda.pairs_evaluated = None   # of the last launch
+water_water_tally_cuda.pairs_evaluated = None   # (R,) of the last launch
 water_water_tally_cuda.passes = None            # of the last launch

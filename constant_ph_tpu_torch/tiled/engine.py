@@ -19,8 +19,18 @@ With ``metad`` (metad.MetadParams) the λ forces carry the state's
 well-tempered bias tables, and ``make_run`` deposits one hill per site at
 a block boundary whenever the block crossed a multiple of the stride
 (unless ``metad_frozen``). Random numbers come from a ``torch.Generator``:
-the engine's own, or one the caller passes to ``step`` / ``run`` (one per
-replica in parallel/replica.py).
+the engine's own, or one the caller passes to ``step`` / ``run``.
+
+Replicas are a batch dimension: every method takes a batch of R walkers
+(a TiledState whose tensor fields lead with R, as
+parallel.replica.stack_replicas makes it; ``step_host`` shared) and moves
+them all with one sequence of launches, K1 and K2 each launched once a
+force evaluation for the whole batch, as ``jax.vmap`` over the JAX
+engine does. Energies, temperatures, flags and ``h_conserved`` come back
+(R,), observables (R, T, …). A batch draws replica r's Langevin noise
+from ``generators[r]``, in the order a run of that replica alone draws
+it. A single state runs through the same code as a batch of one
+(unsqueezed at entry, squeezed at exit), with one generator.
 
 k-space is smooth PME (``kspace_ep`` a PMEParams, also on the live box
 under NPT) or factorized Ewald (an ops.ewald.EwaldParams: every water slot
@@ -36,6 +46,7 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import lambda_dyn, metad as metad_mod, units
+from constant_ph_tpu_torch.batching import PerReplica, bview, state_batched
 from constant_ph_tpu_torch.engine import (
     EngineConfig,
     Observables,
@@ -56,7 +67,9 @@ from constant_ph_tpu_torch.tiled.shake import TiledWaterShake
 
 
 @dataclasses.dataclass
-class TiledForces:
+class TiledForces(PerReplica):
+    """One replica's shapes; a batch leads every field with R."""
+
     fw: torch.Tensor      # (3, G, 3W)
     fs: torch.Tensor      # (Ns, 3)
     f_lam: torch.Tensor   # (S,)
@@ -144,15 +157,18 @@ class TiledEngine:
     # -- forces ---------------------------------------------------------------
 
     def charges_solute(self, lam):
+        """Solute charges (…, Ns) at λ (…, S)."""
         ts = self.ts
         if ts.spec is None:
-            return ts.solute.q0
+            return ts.solute.q0.expand(lam.shape[:-1] + (-1,))
         return lambda_dyn.charges(ts.solute.q0, ts.spec, lam)
 
+    @state_batched
     def compute_forces(self, st: TiledState, need_tally: bool = False,
                        kspace_impulse: bool = False,
                        phi_recip_prev=None) -> TiledForces:
-        """Forces + energies (+ per-atom water tallies when ``need_tally``).
+        """Forces + energies (+ per-atom water tallies when ``need_tally``)
+        of a batch, or of one state.
 
         The hot path skips the water eatom/φ tallies: only φ on solute
         atoms feeds dU/dλ, and the tallies serve the compute_Hs
@@ -171,11 +187,14 @@ class TiledEngine:
         p = ts.params
         gx, gy, gz = p.grid
         W = p.W
-        box = st.box
+        R = st.wx.shape[0]
+        # the kernels take contiguous tiles and boxes; a batch sliced out
+        # of another (every other replica) is strided
+        box = st.box.contiguous()
         kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
 
-        wxg = st.wx.reshape(3, gx, gy, gz, 3 * W)
-        wvg = st.wvalid.reshape(gx, gy, gz, W)
+        wxg = st.wx.reshape(R, 3, gx, gy, gz, 3 * W).contiguous()
+        wvg = st.wvalid.reshape(R, gx, gy, gz, W)
 
         fast_ok = min(p.grid) >= 3 and not need_tally
         if self.use_pallas_ww:
@@ -184,17 +203,17 @@ class TiledEngine:
         elif fast_ok:
             e_lj_ww, e_c_ww, f_ww = tforces.water_water_fast(
                 wxg, ts.water, p, box, **kw)
-            eatom_ww = torch.zeros_like(wxg[0])
+            eatom_ww = torch.zeros_like(wxg[:, 0])
         else:
             e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water(
                 wxg, wvg, ts.water, p, box, **kw)
 
-        qs = self.charges_solute(st.lam)
+        qs = self.charges_solute(st.lam)                     # (R, Ns)
         if fast_ok:
             e_lj_ws, e_c_ws, f_w_ws, f_s_ws, phi_s_ws = \
                 tforces.water_solute_fast(wxg, st.sx, qs, ts.solute,
                                           ts.water, p, box, **kw)
-            eatom_w_ws = torch.zeros_like(wxg[0])
+            eatom_w_ws = torch.zeros_like(wxg[:, 0])
             eatom_s_ws = torch.zeros_like(qs)
         else:
             (e_lj_ws, e_c_ws, f_w_ws, f_s_ws, eatom_w_ws, eatom_s_ws, _,
@@ -203,13 +222,13 @@ class TiledEngine:
         e_lj_ss, e_c_ss, f_ss, eatom_ss, phi_ss = tforces.solute_solute(
             st.sx, qs, ts.solute, box, **kw)
 
-        fw = (f_ww + f_w_ws).reshape(3, self.G, 3 * W)
+        fw = (f_ww + f_w_ws).reshape(R, 3, self.G, 3 * W)
         fs = f_s_ws + f_ss
-        eatom_w = (eatom_ww + eatom_w_ws).reshape(self.G, 3 * W)
+        eatom_w = (eatom_ww + eatom_w_ws).reshape(R, self.G, 3 * W)
         eatom_s = eatom_s_ws + eatom_ss
         phi_s = phi_s_ws + phi_ss
 
-        zero = torch.zeros((), dtype=st.sx.dtype, device=st.sx.device)
+        zero = st.sx.new_zeros((R,))
         e_bonded = zero
         if ts.bonded is not None and int(ts.bonded.bond_idx.shape[0]):
             e_bonded, fb, eatom_b = bonded_forces(st.sx, box, ts.bonded)
@@ -229,49 +248,50 @@ class TiledEngine:
         elif isinstance(self.kspace_ep, PMEParams):
             # an MTS boundary (or no MTS): smooth PME on the cell tiles
             vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
-            wqg = (self.wq_pat[None, :] * vm_atoms).reshape(gx, gy, gz,
-                                                             3 * W)
+            wqg = (self.wq_pat * vm_atoms).reshape(R, gx, gy, gz, 3 * W)
             qs_m = qs * ts.solute.smask
             ek, fwk, fsk, phi_recip, phi_wk = pme_recip_tiled(
                 wxg, wqg, st.sx, qs_m, self.kspace_ep,
                 need_water_phi=need_tally,
                 box=st.box if self.cfg.kspace_live_box else None)
-            fw = fw + float(k_ev) * fwk.reshape(3, self.G, 3 * W)
+            fw = fw + float(k_ev) * fwk.reshape(R, 3, self.G, 3 * W)
             fs = fs + float(k_ev) * fsk
             if need_tally:
-                eatom_w = eatom_w + (0.5 * wqg * phi_wk).reshape(self.G,
-                                                                 3 * W)
+                eatom_w = eatom_w + (0.5 * wqg * phi_wk).reshape(
+                    R, self.G, 3 * W)
                 eatom_s = eatom_s + 0.5 * qs_m * phi_recip
             e_kspace = ek + self.e_corr
         elif self.kspace_ep is not None:
             # factorized Ewald over every water slot and solute atom:
             # parked slots carry no charge and get no force
             vm_atoms = torch.repeat_interleave(st.wvalid, 3,
-                                               dim=-1).reshape(-1)
-            nw = vm_atoms.shape[0]
+                                               dim=-1).reshape(R, -1)
+            nw = vm_atoms.shape[-1]
             q_all = torch.cat([self.wq_pat.repeat(self.G) * vm_atoms,
-                               qs * ts.solute.smask])
-            xd = tuple(torch.cat([st.wx[d].reshape(-1), st.sx[:, d]])
-                       for d in range(3))
+                               qs * ts.solute.smask], dim=-1)
+            xd = tuple(torch.cat([st.wx[:, d].reshape(R, -1), st.sx[..., d]],
+                                 dim=-1) for d in range(3))
             ek, fk, phik, eatomk = ewald_recip_xd(xd, q_all, self.kspace_ep)
-            fwk = torch.stack([fk[d][:nw] * vm_atoms for d in range(3)])
-            fsk = torch.stack([fk[d][nw:] for d in range(3)], dim=-1)
-            fw = fw + float(k_ev) * fwk.reshape(3, self.G, 3 * W)
+            fwk = torch.stack([fk[d][:, :nw] * vm_atoms for d in range(3)],
+                              dim=1)
+            fsk = torch.stack([fk[d][:, nw:] for d in range(3)], dim=-1)
+            fw = fw + float(k_ev) * fwk.reshape(R, 3, self.G, 3 * W)
             fs = fs + float(k_ev) * fsk
-            phi_recip = phik[nw:]
-            eatom_w = eatom_w + eatomk[:nw].reshape(self.G, 3 * W)
-            eatom_s = eatom_s + eatomk[nw:]
+            phi_recip = phik[:, nw:]
+            eatom_w = eatom_w + eatomk[:, :nw].reshape(R, self.G, 3 * W)
+            eatom_s = eatom_s + eatomk[:, nw:]
             e_kspace = ek + self.e_corr
 
         phi_s = phi_s + phi_recip
         if ts.spec is not None:
             dUdlam = lambda_dyn.dq_dlambda_dot(ts.spec, phi_s)
             f_lam, u_site = lambda_dyn.lambda_force(
-                st.lam, dUdlam, ts.spec, st.pH, self.cfg.T, self.bias)
-            e_site = torch.sum(u_site)
+                st.lam, dUdlam, ts.spec, st.pH[:, None], self.cfg.T,
+                self.bias)
+            e_site = torch.sum(u_site, dim=-1)
             if self.metad is not None:
-                if tuple(st.metad_v.shape) != (ts.spec.n_sites,
-                                               self.metad.nbins):
+                if tuple(st.metad_v.shape[1:]) != (ts.spec.n_sites,
+                                                   self.metad.nbins):
                     raise ValueError(
                         "state carries no metadynamics tables of this "
                         "shape: set them with metad.init_tables "
@@ -279,9 +299,9 @@ class TiledEngine:
                 vb, dvb = metad_mod.lookup(st.metad_v, st.metad_dv, st.lam,
                                            self.metad)
                 f_lam = f_lam - dvb
-                e_site = e_site + torch.sum(vb)
+                e_site = e_site + torch.sum(vb, dim=-1)
         else:
-            dUdlam = f_lam = st.sx.new_zeros((0,))
+            dUdlam = f_lam = st.sx.new_zeros((R, 0))
             e_site = zero
 
         return TiledForces(
@@ -307,19 +327,24 @@ class TiledEngine:
                 "solute": solute, "total": tiles + masks + solute}
 
     def _ke(self, wvalid, wv, sv):
-        vm_atoms = torch.repeat_interleave(wvalid, 3, dim=-1)[None]
+        """Kinetic energy (R,) of a batch's velocities."""
+        vm_atoms = torch.repeat_interleave(wvalid, 3, dim=-1)[:, None]
         ke_w = 0.5 * units.MVV2E * torch.sum(
-            self.wmass[None, None, :] * wv * wv * vm_atoms)
+            (self.wmass * wv * wv * vm_atoms).flatten(1), dim=-1)
         sol = self.ts.solute
         ke_s = 0.5 * units.MVV2E * torch.sum(
-            sol.mass[:, None] * sv * sv * sol.smask[:, None])
+            (sol.mass[:, None] * sv * sv * sol.smask[:, None]).flatten(1),
+            dim=-1)
         return ke_w + ke_s
 
+    @state_batched
     def kinetic_energy(self, st: TiledState):
         return self._ke(st.wvalid, st.wv, st.sv)
 
+    @state_batched
     def observe(self, st: TiledState, frc: TiledForces) -> Observables:
-        ke = self.kinetic_energy(st)
+        """Observables of a batch (fields (R, …)), or of one state."""
+        ke = self._ke(st.wvalid, st.wv, st.sv)
         temp = 2.0 * ke / (self.ndof * units.BOLTZ)
         if self.ts.spec is not None:
             ke_lam = lambda_dyn.lambda_kinetic(st.v_lam, self.ts.spec)
@@ -330,7 +355,7 @@ class TiledEngine:
         # rows (off-boundary rows report e_kspace = 0); h_valid marks them
         k_ev = self.cfg.kspace_every
         if self.kspace_ep is None or k_ev == 1:
-            h_valid = torch.ones((), dtype=torch.bool, device=ke.device)
+            h_valid = torch.ones(ke.shape, dtype=torch.bool, device=ke.device)
         else:
             h_valid = (st.step % k_ev) == 0
         return Observables(
@@ -344,24 +369,25 @@ class TiledEngine:
 
     def compute_Hs(self, st: TiledState, frc: TiledForces | None = None):
         """Per-atom energy diagnostic of the reference fix: HA = Σ eatom,
-        HB = HA without the titratable-H group."""
+        HB = HA without the titratable-H group ((R,) each for a batch)."""
         if frc is None:
             frc = self.compute_forces(st, need_tally=True)
         vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
-        HA = (torch.sum(frc.eatom_w * vm_atoms)
-              + torch.sum(frc.eatom_s * self.ts.solute.smask))
+        HA = (torch.sum(frc.eatom_w * vm_atoms, dim=(-2, -1))
+              + torch.sum(frc.eatom_s * self.ts.solute.smask, dim=-1))
         HB = HA - torch.sum(torch.where(self.ts.groupH_mask, frc.eatom_s,
-                                        0.0))
+                                        0.0), dim=-1)
         return HA, HB
 
     # -- integration ------------------------------------------------------------
 
     def _lam_kick_scale(self, step, offset):
+        """Each replica's λ kick factor (R, 1) at its step (R,)."""
         nev = self.cfg.lambda_nevery
         if nev <= 1 or self.ts.spec is None:
             return 1.0
         active = ((step + offset) % nev) == 0
-        return active.to(torch.float32) * float(nev)
+        return active.to(torch.float32)[:, None] * float(nev)
 
     def _reflect_lam(self, lam, v_lam):
         # FOLDING reflection (period-2L sawtooth), not a single mirror: maps
@@ -403,7 +429,7 @@ class TiledEngine:
         cap = self.cfg.force_cap
         if cap <= 0.0:
             return frc
-        wnorm = torch.sqrt(torch.sum(frc.fw * frc.fw, dim=0, keepdim=True)
+        wnorm = torch.sqrt(torch.sum(frc.fw * frc.fw, dim=-3, keepdim=True)
                            + 1e-12)
         snorm = torch.sqrt(torch.sum(frc.fs * frc.fs, dim=-1, keepdim=True)
                            + 1e-12)
@@ -411,19 +437,41 @@ class TiledEngine:
             frc, fw=frc.fw * torch.clamp(cap / wnorm, max=1.0),
             fs=frc.fs * torch.clamp(cap / snorm, max=1.0))
 
-    def _randn(self, like, generator):
-        return torch.randn(like.shape, generator=generator,
-                           dtype=like.dtype, device=like.device)
+    def _randn(self, like, generators):
+        """Standard normal noise shaped like the batch ``like``: replica
+        r's slice drawn from generators[r], the numbers a run of that
+        replica alone draws (one small launch a replica)."""
+        noise = torch.empty_like(like)
+        for r, gen in enumerate(generators):
+            noise[r].normal_(generator=gen)
+        return noise
+
+    def _generators(self, st: TiledState, generators):
+        """One generator a replica of a batch: ``generators``, or the
+        engine's own for a batch of one."""
+        R = st.wx.shape[0]
+        if generators is None:
+            if R != 1:
+                raise ValueError(f"a batch of {R} replicas needs one "
+                                 "torch.Generator a replica")
+            return [self.generator]
+        generators = list(generators)
+        if len(generators) != R:
+            raise ValueError(f"{len(generators)} generators for a batch of "
+                             f"{R} replicas")
+        return generators
 
     def _project_solute(self, sx, sv, box):
         sc = self.ts.solute_constraints
         return sc.velocities(sx, sv, box) if sc is not None else sv
 
-    def step(self, st: TiledState, frc: TiledForces, generator=None):
-        """One BAOAB (or velocity-Verlet / NHC) step; returns the new state
-        and the forces at its positions. Langevin noise comes from
-        ``generator`` (default: the engine's)."""
-        gen = self.generator if generator is None else generator
+    @state_batched
+    def step(self, st: TiledState, frc: TiledForces, generators=None):
+        """One BAOAB (or velocity-Verlet / NHC) step of a batch, or of one
+        state; returns the new state and the forces at its positions.
+        Langevin noise comes from ``generators`` (one a replica; for one
+        state a Generator, default: the engine's)."""
+        gens = self._generators(st, generators)
         cfg = self.cfg
         ts = self.ts
         dt = cfg.dt
@@ -431,10 +479,11 @@ class TiledEngine:
         move_lam = has_lam and not cfg.lambda_frozen
         frc = self._cap_forces(frc)
 
-        vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)[None]
-        inv_mw = (units.FTM2V / self.wmass)[None, None, :]
+        vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)[:, None]
+        inv_mw = units.FTM2V / self.wmass
         inv_ms = units.FTM2V / ts.solute.mass[:, None]
         inv_ml = units.FTM2V / ts.spec.m_lambda if has_lam else None
+        pH = st.pH[:, None]                  # against (R, S) λ arrays
 
         wv, sv, v_lam = st.wv, st.sv, st.v_lam
         wx, sx, lam = st.wx, st.sx, st.lam
@@ -452,14 +501,14 @@ class TiledEngine:
             ke2 = 2.0 * ke_vel(wv, sv)
             scale, nhc_xi = nhc_halfstep(nhc_xi, ke2, self.ndof, kT,
                                          cfg.tau, dt)
-            wv = wv * scale
-            sv = sv * scale
+            wv = wv * bview(scale, wv.ndim)
+            sv = sv * bview(scale, sv.ndim)
             ext_work = ext_work + 0.5 * ke2 * (scale * scale - 1.0)
         if move_lam and cfg.lambda_thermostat == "nhc":
             ke2l = 2.0 * lambda_dyn.lambda_kinetic(v_lam, ts.spec)
             scale_l, nhc_lam_xi = nhc_halfstep(
                 nhc_lam_xi, ke2l, self.n_sites, kT, cfg.lambda_tau, dt)
-            v_lam = v_lam * scale_l
+            v_lam = v_lam * scale_l[:, None]
             ext_work = ext_work + 0.5 * ke2l * (scale_l * scale_l - 1.0)
 
         # B
@@ -468,13 +517,13 @@ class TiledEngine:
         if move_lam:
             k1 = self._lam_kick_scale(st.step, 0)
             v_lam = v_lam + (0.5 * dt) * k1 * self._lam_slow_force(
-                frc.f_lam, st.lam, st.pH) * inv_ml
+                frc.f_lam, st.lam, pH) * inv_ml
 
         # A
         wx = wx + (0.5 * dt) * wv
         sx = sx + (0.5 * dt) * sv
         if move_lam:
-            lam, v_lam = self._lam_drift(lam, v_lam, st.pH, 0.5 * dt, inv_ml)
+            lam, v_lam = self._lam_drift(lam, v_lam, pH, 0.5 * dt, inv_ml)
 
         # O (Langevin OU). The heat is booked into ext_work on
         # CONSTRAINT-PROJECTED copies of the velocities: the raw ΔKE would
@@ -489,19 +538,19 @@ class TiledEngine:
             ke_o0 = ke_proj(wv, sv)
             c1 = math.exp(-cfg.gamma * dt)
             sig_w = torch.sqrt((1.0 - c1 * c1) * kT
-                               / (self.wmass * units.MVV2E))[None, None, :]
-            wv = c1 * wv + sig_w * vm_atoms * self._randn(wv, gen)
+                               / (self.wmass * units.MVV2E))
+            wv = c1 * wv + sig_w * vm_atoms * self._randn(wv, gens)
             sig_s = torch.sqrt((1.0 - c1 * c1) * kT
                                / (ts.solute.mass * units.MVV2E))[:, None]
             sv = c1 * sv + sig_s * ts.solute.smask[:, None] * self._randn(
-                sv, gen)
+                sv, gens)
             ext_work = ext_work + ke_proj(wv, sv) - ke_o0
         if move_lam and cfg.lambda_thermostat == "langevin":
             kel_o0 = lambda_dyn.lambda_kinetic(v_lam, ts.spec)
             c1l = math.exp(-cfg.lambda_gamma * dt)
             sig_l = torch.sqrt((1.0 - c1l * c1l) * kT
                                / (ts.spec.m_lambda * units.MVV2E))
-            v_lam = c1l * v_lam + sig_l * self._randn(v_lam, gen)
+            v_lam = c1l * v_lam + sig_l * self._randn(v_lam, gens)
             ext_work = (ext_work + lambda_dyn.lambda_kinetic(v_lam, ts.spec)
                         - kel_o0)
 
@@ -509,7 +558,7 @@ class TiledEngine:
         wx = wx + (0.5 * dt) * wv
         sx = sx + (0.5 * dt) * sv
         if move_lam:
-            lam, v_lam = self._lam_drift(lam, v_lam, st.pH, 0.5 * dt, inv_ml)
+            lam, v_lam = self._lam_drift(lam, v_lam, pH, 0.5 * dt, inv_ml)
             lam, v_lam = self._reflect_lam(lam, v_lam)
 
         # SHAKE water (tiled) + buffer-water solute constraints
@@ -535,7 +584,7 @@ class TiledEngine:
         if move_lam:
             k2 = self._lam_kick_scale(st.step, 1)
             v_lam = v_lam + (0.5 * dt) * k2 * self._lam_slow_force(
-                frc_new.f_lam, lam, st.pH) * inv_ml
+                frc_new.f_lam, lam, pH) * inv_ml
 
         if use_nhc:
             ke2 = 2.0 * ke_vel(wv, sv)
@@ -546,14 +595,14 @@ class TiledEngine:
             ke2_p = 2.0 * ke_vel(
                 self.shake.velocities(wx, wv, st.box, st.wvalid),
                 self._project_solute(sx, sv, st.box))
-            wv = wv * scale
-            sv = sv * scale
+            wv = wv * bview(scale, wv.ndim)
+            sv = sv * bview(scale, sv.ndim)
             ext_work = ext_work + 0.5 * ke2_p * (scale * scale - 1.0)
         if move_lam and cfg.lambda_thermostat == "nhc":
             ke2l = 2.0 * lambda_dyn.lambda_kinetic(v_lam, ts.spec)
             scale_l, nhc_lam_xi = nhc_halfstep(
                 nhc_lam_xi, ke2l, self.n_sites, kT, cfg.lambda_tau, dt)
-            v_lam = v_lam * scale_l
+            v_lam = v_lam * scale_l[:, None]
             ext_work = ext_work + 0.5 * ke2l * (scale_l * scale_l - 1.0)
 
         # RATTLE
@@ -580,7 +629,7 @@ class TiledEngine:
 
         def fire_step(st, vw, vs, dtf, al, n_pos):
             frc = self.compute_forces(st)
-            vm = torch.repeat_interleave(st.wvalid, 3, dim=-1)[None]
+            vm = torch.repeat_interleave(st.wvalid, 3, dim=-1)[..., None, :, :]
             fw = frc.fw * vm
             fs = frc.fs * smask
             vw = vw + dtf * fw * inv_mw
@@ -601,7 +650,8 @@ class TiledEngine:
             al = torch.where(grow, al * f_alpha,
                              torch.where(uphill, alpha_start, al))
             dxw = dtf * vw
-            lw = torch.sqrt(torch.sum(dxw * dxw, dim=0, keepdim=True) + 1e-20)
+            lw = torch.sqrt(torch.sum(dxw * dxw, dim=-3, keepdim=True)
+                            + 1e-20)
             dxw = dxw * torch.clamp(max_move / lw, max=1.0)
             dxs = dtf * vs
             ls = torch.sqrt(torch.sum(dxs * dxs, dim=-1, keepdim=True)
@@ -645,25 +695,30 @@ class TiledEngine:
     # -- run loop ------------------------------------------------------------
 
     def _deposit(self, st: TiledState, block: int) -> TiledState:
-        """One hill per site at the end of a block that crossed a multiple
-        of the stride (the block started at step_host − block), decided on
-        the host counter so nothing waits for the device. The deposit
-        raises e_site by ΔV(λ) at once; ext_work books it, so h_conserved
-        stays an oracle while hills land."""
+        """One hill per site and replica at the end of a block that
+        crossed a multiple of the stride (the block started at step_host −
+        block), decided on the host counter so nothing waits for the
+        device. The deposit raises e_site by ΔV(λ) at once; each replica's
+        ext_work books its own, so h_conserved stays an oracle while hills
+        land."""
         p = self.metad
         if (st.step_host - block) % p.stride >= block:
             return st
         mv, mdv = metad_mod.deposit(st.metad_v, st.metad_dv, st.lam, p)
         dV = (metad_mod.lookup(mv, mdv, st.lam, p)[0]
               - metad_mod.lookup(st.metad_v, st.metad_dv, st.lam, p)[0])
-        return dataclasses.replace(st, metad_v=mv, metad_dv=mdv,
-                                   ext_work=st.ext_work + torch.sum(dV))
+        return dataclasses.replace(
+            st, metad_v=mv, metad_dv=mdv,
+            ext_work=st.ext_work + torch.sum(dV, dim=-1))
 
     def make_run(self, n_steps: int, detailed_flags: bool = False):
         """Run loop: rebin + ``rebuild_every``-step blocks. Returns
-        run(st, generator=None) → (state, overflow, obs) with obs stacked
-        per step; Langevin noise comes from ``generator`` (default: the
-        engine's).
+        run(batch, generators=None) → (batch, overflow (R,), obs (R, T,
+        …)): R walkers advanced by one sequence of launches (the JAX
+        package's jax.vmap(make_run(n))), replica r's Langevin noise from
+        generators[r]. run(state, generator=None) runs one state as a
+        batch of one, overflow 0-d and obs (T, …); its noise comes from
+        ``generator`` (default: the engine's).
 
         ``overflow`` is the OR of the capacity flag (rebin's early
         slot-full warning) and the dangerous-build drift flag: a water O
@@ -674,30 +729,34 @@ class TiledEngine:
         n_blocks = -(-n_steps // block)
         drift_budget = self.ts.params.skin
 
-        def run(st: TiledState, generator=None):
+        @state_batched
+        def run(st: TiledState, generators=None):
+            gens = self._generators(st, generators)
+            R = st.wx.shape[0]
             dev = st.wx.device
-            ov_cap = torch.zeros((), dtype=torch.bool, device=dev)
-            ov_drift = torch.zeros((), dtype=torch.bool, device=dev)
+            ov_cap = torch.zeros((R,), dtype=torch.bool, device=dev)
+            ov_drift = torch.zeros((R,), dtype=torch.bool, device=dev)
             rows = []
             for _ in range(n_blocks):
                 st, ov = rebin(st, self.ts.params)
                 ov_cap = ov_cap | ov
                 frc = self.compute_forces(st, kspace_impulse=True,
                                           phi_recip_prev=st.phi_recip_s)
-                wxO0 = st.wx[:, :, 0::3]
+                wxO0 = st.wx[..., 0::3]
                 for _ in range(block):
-                    st, frc = self.step(st, frc, generator)
+                    st, frc = self.step(st, frc, gens)
                     rows.append(self.observe(st, frc))
                 # rows keep their identity within a block (rebinning only
                 # moves rows at block start); parked rows don't move
-                dw2 = torch.sum((st.wx[:, :, 0::3] - wxO0) ** 2, dim=0)
-                ov_drift = ov_drift | (torch.max(dw2) > drift_budget ** 2)
+                dw2 = torch.sum((st.wx[..., 0::3] - wxO0) ** 2, dim=1)
+                ov_drift = ov_drift | (torch.amax(dw2, dim=(1, 2))
+                                       > drift_budget ** 2)
                 # keep the k-space MTS carry in the state, so the next run
                 # call keeps the stale-φ λ coupling
                 st = dataclasses.replace(st, phi_recip_s=frc.phi_recip_s)
                 if self.metad is not None and not self.metad_frozen:
                     st = self._deposit(st, block)
-            obs = Observables.stack(rows)
+            obs = Observables.stack(rows, dim=1)
             if detailed_flags:
                 return st, (ov_cap, ov_drift), obs
             return st, ov_cap | ov_drift, obs

@@ -3,6 +3,11 @@ functions of constant_ph_tpu/tiled/pallas_ww.py): water-water,
 water-solute and solute-solute forces and energies, φ on solute atoms for
 dU/dλ, and, on the tally path, per-atom energies and φ.
 
+Every function is written over a leading replica axis R on each tensor
+argument (coordinates, validity, solute charges, box (R, 3)); one
+replica's arrays run as a batch of one (batching.replica_batched), so the
+shapes in the docstrings are one replica's.
+
 Two water-water contracts have CUDA kernels (tiled/cuda_ww.py); each
 dispatcher launches the kernel for a CUDA tensor and runs the plain
 PyTorch version of the same function for a CPU tensor:
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import units
+from constant_ph_tpu_torch.batching import bview, replica_batched
 from constant_ph_tpu_torch.ops.kernels import (
     R2_MIN,
     TWO_OVER_SQRT_PI,
@@ -119,11 +125,13 @@ def _pair_block(xi, xj, box, qi, qj, c6p, c12p, eshp, scoulp, weight,
                 *, style, alpha, rc, double_sided=False) -> BlockSums:
     """Dense pair block between atom sets A and B.
 
-    xi/xj: 3 per-dim coordinate tensors (..., A) / (..., B). Coefficients
-    broadcast to (..., A, B); weight ∈ {0,1} encodes validity +
-    exclusions (masked pairs are pushed outside the cutoff). Single-sided
-    (the default) counts the full matrix from the i side, so energies are
-    halved; double-sided accumulates both sides of each pair once."""
+    xi/xj: 3 per-dim coordinate tensors (R, ..., A) / (R, ..., B); box: 3
+    per-dim box lengths that broadcast against (R, ..., A, B).
+    Coefficients broadcast to (R, ..., A, B); weight ∈ {0,1} encodes
+    validity + exclusions (masked pairs are pushed outside the cutoff).
+    Single-sided (the default) counts the full matrix from the i side, so
+    energies are halved; double-sided accumulates both sides of each pair
+    once. Energies are (R,)."""
     far = rc * rc + 1.0
     dx = []
     r2 = None
@@ -160,8 +168,9 @@ def _pair_block(xi, xj, box, qi, qj, c6p, c12p, eshp, scoulp, weight,
     else:
         fj = eatom_j = phi_j = None
         scale = 0.5      # full matrix counted once from the i side
-    return BlockSums(e_lj=scale * torch.sum(e_lj_p),
-                     e_coul=scale * torch.sum(e_c_p), fi=fi, fj=fj,
+    return BlockSums(e_lj=scale * torch.sum(e_lj_p.flatten(1), dim=-1),
+                     e_coul=scale * torch.sum(e_c_p.flatten(1), dim=-1),
+                     fi=fi, fj=fj,
                      eatom_i=eatom_i, eatom_j=eatom_j, phi_i=phi_i,
                      phi_j=phi_j)
 
@@ -178,6 +187,13 @@ def _water_patterns(wm: WaterModel, W: int, dtype, device):
             (mol[:, None] != mol[None, :]).to(dtype))
 
 
+def _box_dims(box, ndim):
+    """The three per-replica box lengths of box (R, 3), each shaped to
+    broadcast against (R, …) arrays of ``ndim`` dims."""
+    return tuple(bview(box[:, d], ndim) for d in range(3))
+
+
+@replica_batched(5)
 def water_water(wxg, wvalid, wm: WaterModel, p: TileParams, box,
                 *, style, alpha, rc):
     """All water-water interactions with per-atom tallies (the tally
@@ -191,7 +207,8 @@ def water_water(wxg, wvalid, wm: WaterModel, p: TileParams, box,
                                                   wxg.device)
     vmask = torch.repeat_interleave(wvalid, 3, dim=-1)     # (gx,gy,gz,3W)
 
-    xi = tuple(wxg[d] for d in range(3))
+    xi = tuple(wxg[:, d] for d in range(3))
+    bx = _box_dims(box, 6)
     lj2 = lj_pat[:, None] * lj_pat[None, :]
     c6_ij = wm.c6_OO * lj2
     c12_ij = wm.c12_OO * lj2
@@ -200,20 +217,20 @@ def water_water(wxg, wvalid, wm: WaterModel, p: TileParams, box,
 
     # self cell: full matrix, same-molecule pairs excluded, i-side counting
     w_self = (vmask[..., :, None] * vmask[..., None, :]) * not_same_mol
-    bs = _pair_block(xi, xi, box, q_pat, q_pat, c6_ij, c12_ij, esh_ij, 1.0,
+    bs = _pair_block(xi, xi, bx, q_pat, q_pat, c6_ij, c12_ij, esh_ij, 1.0,
                      w_self, **kw)
     f = list(bs.fi)
     eatom, phi = bs.eatom_i, bs.phi_i
     e_lj, e_coul = bs.e_lj, bs.e_coul
 
     # half stencil: each unordered cell pair once, both sides accumulated
-    dims = (0, 1, 2)
+    dims = (1, 2, 3)
     for off in p.half_stencil:
         sh = tuple(-o for o in off)
-        xj = tuple(torch.roll(wxg[d], sh, dims=dims) for d in range(3))
+        xj = tuple(torch.roll(wxg[:, d], sh, dims=dims) for d in range(3))
         vmj = torch.roll(vmask, sh, dims=dims)
         w = vmask[..., :, None] * vmj[..., None, :]
-        bs = _pair_block(xi, xj, box, q_pat, q_pat, c6_ij, c12_ij, esh_ij,
+        bs = _pair_block(xi, xj, bx, q_pat, q_pat, c6_ij, c12_ij, esh_ij,
                          1.0, w, double_sided=True, **kw)
         for d in range(3):
             f[d] = f[d] + bs.fi[d] + torch.roll(bs.fj[d], off, dims=dims)
@@ -221,9 +238,10 @@ def water_water(wxg, wvalid, wm: WaterModel, p: TileParams, box,
         phi = phi + bs.phi_i + torch.roll(bs.phi_j, off, dims=dims)
         e_lj = e_lj + bs.e_lj
         e_coul = e_coul + bs.e_coul
-    return e_lj, e_coul, torch.stack(f), eatom, phi
+    return e_lj, e_coul, torch.stack(f, dim=1), eatom, phi
 
 
+@replica_batched(5)
 def water_solute(wxg, wvalid, sx, qs, st: SoluteTables, wm: WaterModel,
                  p: TileParams, box, *, style, alpha, rc):
     """Water tiles × dense solute with per-atom tallies. Returns (e_lj,
@@ -232,34 +250,39 @@ def water_solute(wxg, wvalid, sx, qs, st: SoluteTables, wm: WaterModel,
     q_pat, lj_pat, _ = _water_patterns(wm, p.W, wxg.dtype, wxg.device)
     vmask = torch.repeat_interleave(wvalid, 3, dim=-1)
 
-    xi = tuple(wxg[d] for d in range(3))
-    xj = tuple(sx[:, d][None, None, None, :] for d in range(3))
+    xi = tuple(wxg[:, d] for d in range(3))
+    xj = tuple(sx[:, None, None, None, :, d] for d in range(3))
+    qj = qs[:, None, None, None, :]
     c6p = lj_pat[:, None] * st.c6_cross[None, :]
     c12p = lj_pat[:, None] * st.c12_cross[None, :]
     eshp = lj_pat[:, None] * st.eshift_cross[None, :]
     w = vmask[..., :, None] * st.smask[None, None, None, None, :]
-    bs = _pair_block(xi, xj, box, q_pat, qs, c6p, c12p, eshp, 1.0, w,
-                     style=style, alpha=alpha, rc=rc, double_sided=True)
-    f_s = torch.stack([torch.sum(bs.fj[d], dim=(0, 1, 2)) for d in range(3)],
+    bs = _pair_block(xi, xj, _box_dims(box, 6), q_pat, qj, c6p, c12p, eshp,
+                     1.0, w, style=style, alpha=alpha, rc=rc,
+                     double_sided=True)
+    cells = (1, 2, 3)
+    f_s = torch.stack([torch.sum(bs.fj[d], dim=cells) for d in range(3)],
                       dim=-1)
-    return (bs.e_lj, bs.e_coul, torch.stack(bs.fi), f_s, bs.eatom_i,
-            torch.sum(bs.eatom_j, dim=(0, 1, 2)), bs.phi_i,
-            torch.sum(bs.phi_j, dim=(0, 1, 2)))
+    return (bs.e_lj, bs.e_coul, torch.stack(bs.fi, dim=1), f_s, bs.eatom_i,
+            torch.sum(bs.eatom_j, dim=cells), bs.phi_i,
+            torch.sum(bs.phi_j, dim=cells))
 
 
+@replica_batched(2)
 def solute_solute(sx, qs, st: SoluteTables, box, *, style, alpha, rc):
     """Dense all-pairs solute block with exact special tables. Returns
     (e_lj, e_coul, f (Ns, 3), eatom (Ns,), phi (Ns,))."""
-    Ns = sx.shape[0]
-    xi = tuple(sx[:, d] for d in range(3))
+    Ns = sx.shape[-2]
+    xi = tuple(sx[..., d] for d in range(3))
     eye = torch.eye(Ns, dtype=sx.dtype, device=sx.device)
     w = st.smask[:, None] * st.smask[None, :] * (1.0 - eye)
-    bs = _pair_block(xi, xi, box, qs, qs, st.c6, st.c12, st.eshift,
-                     st.scoul, w, style=style, alpha=alpha, rc=rc)
+    bs = _pair_block(xi, xi, _box_dims(box, 3), qs, qs, st.c6, st.c12,
+                     st.eshift, st.scoul, w, style=style, alpha=alpha, rc=rc)
     return (bs.e_lj, bs.e_coul, torch.stack(bs.fi, dim=-1), bs.eatom_i,
             bs.phi_i)
 
 
+@replica_batched(5)
 def water_solute_fast(wxg, sx, qs, st: SoluteTables, wm: WaterModel,
                       p: TileParams, box, *, style, alpha, rc):
     """Hot-path water×solute block.
@@ -280,7 +303,8 @@ def water_solute_fast(wxg, sx, qs, st: SoluteTables, wm: WaterModel,
     q_pat = torch.where(is_o, wm.q_pattern[0], wm.q_pattern[1]).to(dtype)
     lj_pat = is_o.to(dtype)[:, None]                          # O rows only
 
-    qj = qs * st.smask                                        # (Ns,)
+    R = wxg.shape[0]
+    qj = (qs * st.smask)[:, None, None, None, None, :]        # (R,..,1,Ns)
     c6p = lj_pat * (st.c6_cross * st.smask)
     c12p = lj_pat * (st.c12_cross * st.smask)
     eshp = lj_pat * (st.eshift_cross * st.smask)
@@ -292,36 +316,41 @@ def water_solute_fast(wxg, sx, qs, st: SoluteTables, wm: WaterModel,
     r2 = None
     for d in range(3):
         g = p.grid[d]
-        cc = (torch.arange(g, dtype=dtype, device=dev) + 0.5) * (box[d] / g)
-        shp = [1, 1, 1]
-        shp[d] = g
-        cc = cc.reshape(shp + [1])                            # cell centres
-        sxd = sx[:, d][None, None, None, :]                   # (1,1,1,Ns)
-        img = sxd - box[d] * torch.round((sxd - cc) / box[d])
-        dd = wxg[d][..., :, None] - img[..., None, :]         # (...,A,Ns)
+        bd = bview(box[:, d], 5)                              # (R,1,1,1,1)
+        shp = [R, 1, 1, 1, 1]
+        shp[1 + d] = g
+        cc = ((torch.arange(g, dtype=dtype, device=dev) + 0.5)
+              * (box[:, d:d + 1] / g)).reshape(shp)           # cell centres
+        sxd = sx[:, None, None, None, :, d]                   # (R,1,1,1,Ns)
+        img = sxd - bd * torch.round((sxd - cc) / bd)
+        dd = wxg[:, d][..., :, None] - img[..., None, :]      # (R,...,A,Ns)
         dx.append(dd)
         r2 = dd * dd if r2 is None else r2 + dd * dd
     r2 = torch.clamp(r2, min=R2_MIN)
     in_rc = (r2 < rc2).to(dtype)
     u_r, w_r, inv_r2 = _screened_coulomb(r2, style, rc, consts)
     u_r = u_r * in_rc
-    kqq = units.QQR2E * q_pat[:, None] * qj[None, :]
-    e_coul = torch.sum(kqq * u_r)
-    phi_s = units.QQR2E * torch.sum(q_pat[:, None] * u_r, dim=(0, 1, 2, 3))
+    kqq = units.QQR2E * q_pat[:, None] * qj
+    cells_a = (1, 2, 3, 4)
+    e_coul = torch.sum((kqq * u_r).flatten(1), dim=-1)
+    phi_s = units.QQR2E * torch.sum(q_pat[:, None] * u_r, dim=cells_a)
 
     inv_r6 = inv_r2 * inv_r2 * inv_r2
-    e_lj = torch.sum(((c12p * inv_r6 - c6p) * inv_r6 - eshp) * in_rc)
+    e_lj = torch.sum((((c12p * inv_r6 - c6p) * inv_r6 - eshp)
+                      * in_rc).flatten(1), dim=-1)
     fpair = (kqq * (w_r * in_rc)
              + (12.0 * c12p * inv_r6 - 6.0 * c6p) * inv_r6 * inv_r2 * in_rc)
     f_w = []
     f_s = []
     for d in range(3):
         fd = fpair * dx[d]
-        f_w.append(torch.sum(fd, dim=-1))                     # (...,A)
-        f_s.append(-torch.sum(fd, dim=(0, 1, 2, 3)))          # (Ns,)
-    return e_lj, e_coul, torch.stack(f_w), torch.stack(f_s, dim=-1), phi_s
+        f_w.append(torch.sum(fd, dim=-1))                     # (R,...,A)
+        f_s.append(-torch.sum(fd, dim=cells_a))               # (R,Ns)
+    return (e_lj, e_coul, torch.stack(f_w, dim=1),
+            torch.stack(f_s, dim=-1), phi_s)
 
 
+@replica_batched(1)
 def _roll_shift(box, grid, off, dtype):
     """Per-cell image shifts for a rolled neighbour tile, (3, gx, gy, gz,
     1). ``torch.roll(x, -off)`` hands cell i the coordinates of cell
@@ -336,12 +365,14 @@ def _roll_shift(box, grid, off, dtype):
             s[g - 1] = 1.0
         elif off[d] == -1:
             s[0] = -1.0
-        shape = [1, 1, 1, 1]
-        shape[d] = g
+        shape = [1, 1, 1, 1, 1]
+        shape[1 + d] = g
         shifts.append(torch.as_tensor(s.reshape(shape), dtype=dtype,
-                                      device=box.device) * box[d])
-    return torch.stack([torch.broadcast_to(s, tuple(grid) + (1,))
-                        for s in shifts])
+                                      device=box.device)
+                      * bview(box[:, d], 5))
+    R = box.shape[0]
+    return torch.stack([torch.broadcast_to(s, (R,) + tuple(grid) + (1,))
+                        for s in shifts], dim=1)
 
 
 # the plain versions' dense pair blocks: a block of G·A² floats above
@@ -353,17 +384,19 @@ _BLOCK_WHOLE = 32 << 20
 _BLOCK_PART = 8 << 20
 
 
-def _row_chunks(grid, A, itemsize):
-    """Slices over the gx·gy cell rows that split a (G, A, A) block."""
+def _row_chunks(grid, A, itemsize, R=1):
+    """Slices over the gx·gy cell rows that split an (R, G, A, A)
+    block."""
     gx, gy, gz = grid
     rows = gx * gy
-    row_bytes = gz * A * A * itemsize
+    row_bytes = R * gz * A * A * itemsize
     if rows * row_bytes <= _BLOCK_WHOLE:
         return [slice(0, rows)]
     step = max(1, _BLOCK_PART // row_bytes)
     return [slice(r, min(r + step, rows)) for r in range(0, rows, step)]
 
 
+@replica_batched(5)
 def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
                            style, alpha, rc):
     """Plain PyTorch version of the hot-path water-water block: forces +
@@ -400,14 +433,19 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
     c12x12 = 12.0 * wm.c12_OO
     c6x6 = 6.0 * wm.c6_OO
 
-    dims = (1, 2, 3)
-    R = gx * gy
+    dims = (2, 3, 4)
+    R = wxg.shape[0]
+    rows_n = gx * gy
     f = torch.zeros_like(wxg)
     fO = torch.zeros_like(wxg[..., 0::3])
-    e_coul = torch.zeros((), dtype=dtype, device=dev)
-    e_lj = torch.zeros((), dtype=dtype, device=dev)
-    wx4 = wxg.reshape(3, R, gz, A)
-    chunks = _row_chunks(p.grid, A, wxg.element_size())
+    e_coul = torch.zeros((R,), dtype=dtype, device=dev)
+    e_lj = torch.zeros((R,), dtype=dtype, device=dev)
+    wx4 = wxg.reshape(R, 3, rows_n, gz, A)
+    chunks = _row_chunks(p.grid, A, wxg.element_size(), R)
+
+    def total(t):                                    # per-replica sum
+        return torch.sum(t.flatten(1), dim=-1)
+
     for off in list(p.half_stencil) + [None]:
         if off is None:                                      # self tile
             xj, kqq, ljm = wxg, kqq_self, ljm_self
@@ -415,41 +453,41 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
             xj = (torch.roll(wxg, tuple(-o for o in off), dims=dims)
                   + _roll_shift(box, p.grid, off, dtype))
             kqq, ljm = kqq_nbr, None
-        xj4 = xj.reshape(3, R, gz, A)
+        xj4 = xj.reshape(R, 3, rows_n, gz, A)
         # i-side and j-side sums of the whole tile, filled run by run
         fi, fj = torch.empty_like(wx4), torch.empty_like(wx4)
         fiO, fjO = (torch.empty_like(wx4[..., 0::3]),
                     torch.empty_like(wx4[..., 0::3]))
         for rows in chunks:
-            xi_r, xj_r = wx4[:, rows], xj4[:, rows]
-            dx = xi_r[..., :, None] - xj_r[..., None, :]     # (3,...,A,A)
-            r2 = torch.clamp(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2],
-                             min=R2_MIN)
+            xi_r, xj_r = wx4[:, :, rows], xj4[:, :, rows]
+            dx = xi_r[..., :, None] - xj_r[..., None, :]     # (R,3,...,A,A)
+            r2 = torch.clamp(dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1]
+                             + dx[:, 2] * dx[:, 2], min=R2_MIN)
             in_rc = (r2 < rc2).to(dtype)
             u_r, w_r, _ = _screened_coulomb(r2, style, rc, consts)
-            e_coul = e_coul + torch.sum(kqq * (u_r * in_rc))
-            hd = (kqq * (w_r * in_rc))[None] * dx
-            fi[:, rows] = torch.sum(hd, dim=-1)
-            fj[:, rows] = -torch.sum(hd, dim=-2)
+            e_coul = e_coul + total(kqq * (u_r * in_rc))
+            hd = (kqq * (w_r * in_rc))[:, None] * dx
+            fi[:, :, rows] = torch.sum(hd, dim=-1)
+            fj[:, :, rows] = -torch.sum(hd, dim=-2)
 
             dxo = dx[..., 0::3, 0::3]                        # O-O block
-            r2o = torch.clamp(dxo[0] * dxo[0] + dxo[1] * dxo[1]
-                              + dxo[2] * dxo[2], min=R2_MIN)
+            r2o = torch.clamp(dxo[:, 0] * dxo[:, 0] + dxo[:, 1] * dxo[:, 1]
+                              + dxo[:, 2] * dxo[:, 2], min=R2_MIN)
             in_rco = (r2o < rc2).to(dtype)
             if ljm is not None:
                 in_rco = ljm * in_rco
             inv_r2 = 1.0 / r2o
             inv_r6 = inv_r2 * inv_r2 * inv_r2
-            e_lj = e_lj + torch.sum(
+            e_lj = e_lj + total(
                 ((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
                 * in_rco)
             fpd = ((c12x12 * inv_r6 - c6x6) * inv_r6 * inv_r2
-                   * in_rco)[None] * dxo
-            fiO[:, rows] = torch.sum(fpd, dim=-1)
-            fjO[:, rows] = -torch.sum(fpd, dim=-2)
+                   * in_rco)[:, None] * dxo
+            fiO[:, :, rows] = torch.sum(fpd, dim=-1)
+            fjO[:, :, rows] = -torch.sum(fpd, dim=-2)
 
         def fold(fi_, fj_):
-            fi_, fj_ = (t.reshape(t.shape[:1] + p.grid + t.shape[-1:])
+            fi_, fj_ = (t.reshape(t.shape[:2] + p.grid + t.shape[-1:])
                         for t in (fi_, fj_))
             return fi_ + (fj_ if off is None
                           else torch.roll(fj_, off, dims=dims))
@@ -460,23 +498,26 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
     return e_lj, e_coul, f
 
 
+@replica_batched(5)
 def water_pairs_in_cutoff(wxg, p: TileParams, box, rc):
     """The water atom pairs the hot-path function needs: unordered pairs
     of different molecules with r² < rc², over the half stencil plus half
     the self tile, masked exactly as water_water_fast_plain masks them
     (same rolled tiles and shifts, r² clamped at R2_MIN). A 0-d int64
-    tensor on wxg's device; it sets the work in K1's bound."""
+    tensor on wxg's device, (R,) for a batch; it sets the work in K1's
+    bound."""
     if min(p.grid) < 3:
         raise ValueError("water_pairs_in_cutoff needs grid >= 3 per dim")
-    dims = (1, 2, 3)
+    dims = (2, 3, 4)
     rc2 = rc * rc
 
     def n_in(xj, mask=None):
-        dx = wxg[..., :, None] - xj[..., None, :]            # (3,...,A,A)
-        r2 = torch.clamp(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2],
-                         min=R2_MIN)
+        dx = wxg[..., :, None] - xj[..., None, :]          # (R,3,...,A,A)
+        r2 = torch.clamp(dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1]
+                         + dx[:, 2] * dx[:, 2], min=R2_MIN)
         inside = r2 < rc2
-        return torch.sum(inside if mask is None else inside & mask)
+        return torch.sum((inside if mask is None else inside & mask)
+                         .flatten(1), dim=-1)
 
     n = sum(n_in(torch.roll(wxg, tuple(-o for o in off), dims=dims)
                  + _roll_shift(box, p.grid, off, wxg.dtype))
@@ -486,6 +527,7 @@ def water_pairs_in_cutoff(wxg, p: TileParams, box, rc):
     return n + n_in(wxg, mol[:, None] != mol[None, :]) // 2
 
 
+@replica_batched(5)
 def water_water_fast(wxg, wm: WaterModel, p: TileParams, box, *,
                      style, alpha, rc):
     """Hot-path water-water block (forces + total energies). Launches the
@@ -512,6 +554,7 @@ def _erfc_pos(x, expmx2):
     return poly * expmx2
 
 
+@replica_batched(5)
 def pack_water_tiles(wxg, wvalid, wm: WaterModel, p: TileParams):
     """(3, gx, gy, gz, A) coords + (gx, gy, gz, W) validity → packed
     tiles (gx, gy, gz, 8, A): rows x, y, z, charge (pattern × valid), LJ
@@ -519,14 +562,15 @@ def pack_water_tiles(wxg, wvalid, wm: WaterModel, p: TileParams):
     q_pat, lj_pat, _ = _water_patterns(wm, p.W, wxg.dtype, wxg.device)
     vm = torch.repeat_interleave(wvalid, 3, dim=-1)          # (gx,gy,gz,A)
     zero = torch.zeros_like(vm)
-    return torch.stack([wxg[0], wxg[1], wxg[2], q_pat * vm, lj_pat * vm,
-                        vm, zero, zero], dim=3).contiguous()
+    return torch.stack([wxg[:, 0], wxg[:, 1], wxg[:, 2], q_pat * vm,
+                        lj_pat * vm, vm, zero, zero], dim=4).contiguous()
 
 
 _STENCIL27 = tuple((ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
                   for oz in (-1, 0, 1))                    # self at 13
 
 
+@replica_batched(5)
 def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
                             style, alpha, rc):
     """Plain PyTorch version of the full-tally water-water kernel (the
@@ -548,26 +592,29 @@ def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
     dtype, dev = wt.dtype, wt.device
     e_sh, f_sh, _, _ = coulomb_constants(style, alpha, rc)
     _, _, not_same_mol = _water_patterns(wm, p.W, dtype, dev)
-    inv_l = 1.0 / box
     gx, gy, gz = p.grid
-    wt4 = wt.reshape(gx * gy, gz, 8, A)
+    R = wt.shape[0]
+    bx = _box_dims(box, 5)
+    inv_l = _box_dims(1.0 / box, 5)
+    wt4 = wt.reshape(R, gx * gy, gz, 8, A)
     out = torch.zeros_like(wt)
-    out4 = out.view(gx * gy, gz, 8, A)
-    chunks = _row_chunks(p.grid, A, wt.element_size())
+    out4 = out.view(R, gx * gy, gz, 8, A)
+    chunks = _row_chunks(p.grid, A, wt.element_size(), R)
     for k, off in enumerate(_STENCIL27):
         tile4 = torch.roll(wt, tuple(-o for o in off),
-                           dims=(0, 1, 2)).reshape(gx * gy, gz, 8, A)
+                           dims=(1, 2, 3)).reshape(R, gx * gy, gz, 8, A)
         for rows in chunks:
-            out4[rows, ..., :6, :] += _tally_block(
-                wt4[rows], tile4[rows], k == 13, box, inv_l, rc, rc2, e_sh,
-                f_sh, alpha, style, wm, not_same_mol)
+            out4[:, rows, ..., :6, :] += _tally_block(
+                wt4[:, rows], tile4[:, rows], k == 13, bx, inv_l, rc, rc2,
+                e_sh, f_sh, alpha, style, wm, not_same_mol)
     return out
 
 
 def _tally_block(wt, tile, self_offset, box, inv_l, rc, rc2, e_sh, f_sh,
                  alpha, style, wm, not_same_mol):
-    """The six per-slot sums (..., 6, A) of packed tiles wt against one
-    offset's tiles ``tile`` (water_water_tally_plain)."""
+    """The six per-slot sums (R, ..., 6, A) of packed tiles wt against one
+    offset's tiles ``tile`` (water_water_tally_plain); box and inv_l are
+    per-dim box lengths and inverses shaped to broadcast."""
     dtype = wt.dtype
     xi = [wt[..., d, :] for d in range(3)]
     qi, lji, vi = wt[..., 3, :], wt[..., 4, :], wt[..., 5, :]
@@ -621,35 +668,41 @@ def _tally_block(wt, tile, self_offset, box, inv_l, rc, rc2, e_sh, f_sh,
          units.QQR2E * torch.sum(qj * u_r, dim=-1)], dim=-2)
 
 
+@replica_batched(5)
 def water_pairs_in_cutoff_tally(wt, box, p: TileParams, rc):
     """The water atom pairs the full-tally function needs: unordered
     pairs of different molecules with weight > 0 and minimum-image
     r² < rc², masked exactly as water_water_tally_plain masks them (same
     rolled tiles, min image, weights and R2_MIN clamp). The 27 offsets
     hold each such pair twice, once from each atom, with bitwise-equal r².
-    A 0-d int64 tensor on wt's device; it sets the work in K2's bound."""
+    A 0-d int64 tensor on wt's device, (R,) for a batch; it sets the work
+    in K2's bound."""
     if min(p.grid) < 3:
         raise ValueError("water_pairs_in_cutoff_tally needs grid >= 3 per "
                          "dim")
     rc2 = rc * rc
-    inv_l = 1.0 / box
+    R = wt.shape[0]
+    bx = _box_dims(box, 6)
+    inv_l = _box_dims(1.0 / box, 6)
     mol = torch.arange(3 * p.W, device=wt.device) // 3
-    n = torch.zeros((), dtype=torch.int64, device=wt.device)
+    n = torch.zeros((R,), dtype=torch.int64, device=wt.device)
     for k, off in enumerate(_STENCIL27):
-        tile = torch.roll(wt, tuple(-o for o in off), dims=(0, 1, 2))
+        tile = torch.roll(wt, tuple(-o for o in off), dims=(1, 2, 3))
         r2 = None
         for d in range(3):
             dd = wt[..., d, :, None] - tile[..., d, :][..., None, :]
-            dd = dd - box[d] * torch.round(dd * inv_l[d])
+            dd = dd - bx[d] * torch.round(dd * inv_l[d])
             r2 = dd * dd if r2 is None else r2 + dd * dd
         w = wt[..., 5, :, None] * tile[..., 5, :][..., None, :]
         live = w > 0
         if k == 13:
             live = live & (mol[:, None] != mol[None, :])
-        n = n + torch.sum(live & (torch.clamp(r2, min=R2_MIN) < rc2))
+        n = n + torch.sum((live & (torch.clamp(r2, min=R2_MIN) < rc2))
+                          .flatten(1), dim=-1)
     return n // 2
 
 
+@replica_batched(5)
 def water_water_tally(wxg, wvalid, wm: WaterModel, p: TileParams, box, *,
                       style, alpha, rc):
     """The full-tally water-water block through K2 (the counterpart of
@@ -665,8 +718,9 @@ def water_water_tally(wxg, wvalid, wm: WaterModel, p: TileParams, box, *,
         out = water_water_tally_plain(wt, box, wm, p, **kw)
     else:
         raise ValueError(f"water_water_tally: no kernel for {wt.device}")
-    f = torch.movedim(out[..., :3, :], -2, 0)
-    return (torch.sum(out[..., 3, :]), torch.sum(out[..., 4, :]), f,
+    f = torch.movedim(out[..., :3, :], -2, 1)
+    return (torch.sum(out[..., 3, :].flatten(1), dim=-1),
+            torch.sum(out[..., 4, :].flatten(1), dim=-1), f,
             out[..., 3, :] + out[..., 4, :], out[..., 5, :])
 
 

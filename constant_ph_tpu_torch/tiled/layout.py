@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import resolve_device
+from constant_ph_tpu_torch.batching import PerReplica, state_batched
 from constant_ph_tpu_torch.lambda_dyn import LambdaSpec
 from constant_ph_tpu_torch.ops.constraints import RigidTriatomic
 from constant_ph_tpu_torch.state import SystemState
@@ -50,8 +51,10 @@ class TileParams:
 
 
 @dataclasses.dataclass
-class TiledState:
-    """Complete dynamic state in tile layout."""
+class TiledState(PerReplica):
+    """Complete dynamic state in tile layout. A batch of R replicas
+    (parallel.replica.stack_replicas) gives every tensor field a leading
+    R; ``step_host`` stays one host int shared by the batch."""
 
     wx: torch.Tensor       # (3, G, 3W) water atom coords per dim
     wv: torch.Tensor       # (3, G, 3W)
@@ -160,6 +163,27 @@ class TiledSystem:
         self.alpha = alpha
         self.cutoff = cutoff
         self.device = torch.device(device)
+
+    def to(self, device) -> "TiledSystem":
+        """A copy with every table on ``device``."""
+        dev = torch.device(device)
+
+        def move(obj):
+            if obj is None:
+                return None
+            return dataclasses.replace(obj, **{
+                f.name: getattr(obj, f.name).to(dev)
+                for f in dataclasses.fields(obj)
+                if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+        sc = self.solute_constraints
+        return TiledSystem(
+            self.params, self.water, move(self.solute), move(self.spec),
+            move(self.bonded), self.groupH_mask.to(dev), self.water_atom_ids,
+            self.solute_ids, self.n_atoms,
+            solute_constraints=None if sc is None else sc.to(dev),
+            coul_style=self.coul_style, alpha=self.alpha,
+            cutoff=self.cutoff, device=dev)
 
 
 def _np(t):
@@ -488,68 +512,86 @@ def retile_auto(ts: TiledSystem, tstate: TiledState, occ: int, *,
 # device-side re-binning (runs between run blocks)
 # ---------------------------------------------------------------------------
 
+@state_batched
 def rebin(tstate: TiledState, p: TileParams):
     """Re-bin water molecules by current centroid. Molecule-level row
     moves only; returns (new_tstate, overflow_flag) with the flag a 0-d
-    bool tensor on the device (no host sync)."""
+    bool tensor on the device (no host sync).
+
+    A batch (every tensor field with a leading replica axis R) is rebinned
+    in one pass and gets an (R,) flag: one stable argsort over all R·G·W
+    molecule keys, replica r's offset by r·(G + 1), so its parked rows
+    (key G) sort after its cells and before replica r + 1. Each replica's
+    result is bitwise its own rebin's: the same rows, keys and order."""
     G, W = p.G, p.W
+    GW = G * W
     dtype = tstate.wx.dtype
     dev = tstate.wx.device
     gx, gy, gz = p.grid
-    box = tstate.box
+    R = tstate.wx.shape[0]
+    # each row's box: replica r's box on its G·W rows
+    box = tstate.box.repeat_interleave(GW, dim=0)        # (R*G*W, 3)
 
-    # pack per-molecule rows: x(9) + v(9) = (G*W, 18); wid/valid separate
-    xm = tstate.wx.reshape(3, G, W, 3).permute(1, 2, 0, 3).reshape(G * W, 9)
-    vm = tstate.wv.reshape(3, G, W, 3).permute(1, 2, 0, 3).reshape(G * W, 9)
-    valid = tstate.wvalid.reshape(G * W)
-    wid = tstate.wid.reshape(G * W)
+    # pack per-molecule rows: x(9) + v(9) = (R*G*W, 18); wid/valid separate
+    xm = tstate.wx.reshape(R, 3, G, W, 3).permute(0, 2, 3, 1, 4).reshape(
+        R * GW, 9)
+    vm = tstate.wv.reshape(R, 3, G, W, 3).permute(0, 2, 3, 1, 4).reshape(
+        R * GW, 9)
+    valid = tstate.wvalid.reshape(R * GW)
+    wid = tstate.wid.reshape(R * GW)
 
     # row layout is (dim, atom)-flattened: [xO xH1 xH2 yO yH1 yH2 zO ...];
     # bin by centroid with the satellites unwrapped into the O image
-    o_only = xm[:, ::3]                                 # (G*W, 3) O coords
-    mol = xm.reshape(-1, 3, 3)                          # (G*W, dim, atom)
+    o_only = xm[:, ::3]                                 # (R*G*W, 3) O
+    mol = xm.reshape(-1, 3, 3)                          # (R*G*W, dim, atom)
     rel = mol - o_only[:, :, None]
-    rel = rel - box[None, :, None] * torch.round(rel / box[None, :, None])
+    rel = rel - box[:, :, None] * torch.round(rel / box[:, :, None])
     o_pos = o_only + torch.mean(rel, dim=2)             # centroid
-    img = box[None, :] * torch.floor(o_pos / box[None, :])
+    img = box * torch.floor(o_pos / box)
     ow = o_pos - img
     # wrap the whole molecule into the box by its centroid image
     rows = torch.cat([xm - torch.repeat_interleave(img, 3, dim=1), vm],
-                     dim=1)                             # (G*W, 18)
-    # per-dim scalars, not host tensors: a host copy would synchronise
-    ci = [torch.clamp((ow[:, d] / (box[d] / g)).to(torch.int32), 0, g - 1)
+                     dim=1)                             # (R*G*W, 18)
+    # per-row box lengths, not host tensors: a host copy would synchronise
+    ci = [torch.clamp((ow[:, d] / (box[:, d] / g)).to(torch.int32), 0, g - 1)
           for d, g in enumerate(p.grid)]
     cid = (ci[0] * gy + ci[1]) * gz + ci[2]
     key = torch.where(valid > 0.5, cid, torch.full_like(cid, G))
-    order = torch.argsort(key, stable=True)             # invalid sorts last
-    key_s = key[order]
-    first = torch.searchsorted(key_s, key_s, side="left")
-    rank = torch.arange(G * W, dtype=torch.int32, device=dev) - first.to(
+    rep = torch.arange(R, dtype=key.dtype, device=dev).repeat_interleave(GW)
+    order = torch.argsort(key + rep * (G + 1), stable=True)
+    key_s = key[order]                   # each replica's G·W rows in turn
+    kb_s = key_s + rep * (G + 1)
+    first = torch.searchsorted(kb_s, kb_s, side="left")
+    rank = torch.arange(R * GW, dtype=torch.int32, device=dev) - first.to(
         torch.int32)
     # flag one slot EARLY (rank == W-1 fills the last slot): the state is
     # still complete when the flag first trips, so callers can retile
     # before any molecule is dropped
-    overflow = torch.any((rank >= W - 1) & (key_s < G))
+    overflow = torch.any(((rank >= W - 1) & (key_s < G)).reshape(R, GW),
+                         dim=1)
     slot = torch.clamp(rank, 0, W - 1)
-    # rows bound for no cell land on the extra row G*W, which is dropped
-    dest = torch.where(key_s < G, key_s * W + slot,
-                       torch.full_like(key_s, G * W)).long()
+    # rows bound for no cell land on each replica's extra row G*W, which
+    # is dropped
+    dest = (rep * (GW + 1) + torch.where(
+        key_s < G, key_s * W + slot, torch.full_like(key_s, GW))).long()
 
     park = (PARK_BASE
-            + PARK_SPACING * torch.arange(G * W + 1, dtype=dtype, device=dev))
-    new_rows = torch.cat([park[:, None].expand(G * W + 1, 9),
-                          torch.zeros((G * W + 1, 9), dtype=dtype,
-                                      device=dev)], dim=1)
+            + PARK_SPACING * torch.arange(GW + 1, dtype=dtype, device=dev))
+    new_rows = torch.cat([park[:, None].expand(GW + 1, 9),
+                          torch.zeros((GW + 1, 9), dtype=dtype,
+                                      device=dev)], dim=1).repeat(R, 1)
     new_rows[dest] = rows[order]
-    new_valid = torch.zeros(G * W + 1, dtype=valid.dtype, device=dev)
+    new_valid = torch.zeros(R * (GW + 1), dtype=valid.dtype, device=dev)
     new_valid[dest] = torch.ones_like(valid)
-    new_wid = torch.full((G * W + 1,), -1, dtype=wid.dtype, device=dev)
+    new_wid = torch.full((R * (GW + 1),), -1, dtype=wid.dtype, device=dev)
     new_wid[dest] = wid[order]
 
-    xm2 = new_rows[:G * W, :9].reshape(G, W, 3, 3).permute(2, 0, 1, 3)
-    vm2 = new_rows[:G * W, 9:].reshape(G, W, 3, 3).permute(2, 0, 1, 3)
+    new_rows = new_rows.reshape(R, GW + 1, 18)[:, :GW]
+    xm2 = new_rows[..., :9].reshape(R, G, W, 3, 3).permute(0, 3, 1, 2, 4)
+    vm2 = new_rows[..., 9:].reshape(R, G, W, 3, 3).permute(0, 3, 1, 2, 4)
     new = dataclasses.replace(
-        tstate, wx=xm2.reshape(3, G, 3 * W), wv=vm2.reshape(3, G, 3 * W),
-        wvalid=new_valid[:G * W].reshape(G, W),
-        wid=new_wid[:G * W].reshape(G, W))
+        tstate, wx=xm2.reshape(R, 3, G, 3 * W),
+        wv=vm2.reshape(R, 3, G, 3 * W),
+        wvalid=new_valid.reshape(R, GW + 1)[:, :GW].reshape(R, G, W),
+        wid=new_wid.reshape(R, GW + 1)[:, :GW].reshape(R, G, W))
     return new, overflow

@@ -141,17 +141,23 @@ class _Recorder:
         def port_make_run(eng, n_steps, detailed_flags=False):
             rec.calls["port"].append(("run", n_steps, mp_fields(eng.metad)))
 
-            def run(st, generator=None):
+            def run(st, generators=None):
                 if eng.metad is not None:
-                    S = st.metad_v.shape[0]
-                    lam = _hill_lam(st.pH, st.step, S, n_steps,
-                                    torch.arange)
+                    # the walkers come as one batch (R leading), with one
+                    # generator each: the call JAX's recorder sees under
+                    # jax.vmap, each walker's hill as JAX's
+                    R = st.pH.shape[0]
+                    assert st.wx.ndim == 4 and len(generators) == R
+                    S = st.metad_v.shape[-2]
+                    lam = _hill_lam(st.pH[:, None], st.step[:, None], S,
+                                    n_steps, torch.arange)
                     V, dV = tmetad.deposit(st.metad_v, st.metad_dv,
                                            lam.to(torch.float32), eng.metad)
                     st = dataclasses.replace(st, metad_v=V, metad_dv=dV)
                 st = dataclasses.replace(st, step=st.step + n_steps,
                                          step_host=st.step_host + n_steps)
-                return st, torch.zeros((), dtype=torch.bool), None
+                flag = torch.zeros(st.step.shape, dtype=torch.bool)
+                return st, flag, None
             return run
 
         def calibrators(tag):

@@ -40,3 +40,38 @@ def test_retile_matches(built):
     tts2, tst2 = tl.retile(tts, tst, W)
     assert tts2.params.W == jts2.params.W
     assert_same_tiles(jst2, tst2)
+
+
+def test_tiled_system_to_moves_every_table(built):
+    """TiledSystem.to copies every table (the solute constraints' too) to
+    the device it is given and leaves the original where it was."""
+    import dataclasses
+
+    _, jts, jst, _ = built
+    tts, _ = port_of(jts, jst)
+    moved = tts.to("meta")
+
+    def tensors(ts):
+        out = {"groupH_mask": ts.groupH_mask}
+        for name in ("solute", "spec", "bonded"):
+            obj = getattr(ts, name)
+            if obj is not None:
+                out.update({f"{name}.{f.name}": getattr(obj, f.name)
+                            for f in dataclasses.fields(obj)
+                            if isinstance(getattr(obj, f.name),
+                                          torch.Tensor)})
+        out.update({f"constraints.{k}": v
+                    for k, v in vars(ts.solute_constraints).items()
+                    if isinstance(v, torch.Tensor)})
+        return out
+
+    before, after = tensors(tts), tensors(moved)
+    assert before.keys() == after.keys()
+    assert any(k.startswith("constraints.") for k in after)
+    assert all(t.device.type == "meta" for t in after.values())
+    assert all(t.device.type == "cpu" for t in before.values())
+    assert moved.device.type == "meta" and tts.device.type == "cpu"
+    for name in ("params", "water", "n_atoms", "coul_style", "alpha",
+                 "cutoff"):
+        assert getattr(moved, name) == getattr(tts, name)
+    assert np.array_equal(moved.solute_ids, tts.solute_ids)
