@@ -114,7 +114,7 @@ available or the port's package is not beside it.
 8. CLI phase (``cli_path``, after the hewl phase): the port's command
    line in-process (cli.main), files in a temporary directory, depth cut
    through derived configs: (a) ``run`` on configs/hewl_like.json (20,241
-   atoms, W 208, K1 in 3 passes): 400 FIRE steps, 240 steps with a DCD
+   atoms, W 208, K1 in 3 passes): 100 FIRE steps, 240 steps with a DCD
    frame every 120, JSONL and a checkpoint, every chunk under
    elastic_run's check_sync (no host sync inside a chunk), then
    ``run`` from that checkpoint for 120 steps without FIRE (it must
@@ -124,10 +124,13 @@ available or the port's package is not beside it.
    the deck's digits (x, q0 1e-6, mass 1e-6 relative, the same triplets;
    e_lj, e_coul, e_bonded 1e-5 relative and forces 1e-5 of max through the
    reference engine), then ``run`` on the deck; (c) on
-   configs/glu_water.json (649 atoms, grid 1³, the plain tally path)
-   ``titrate`` rex and metad (its walkers one batch: one run call of
-   both a chunk), ``calibrate`` TI, and ``calibrate`` metad, which must
-   refuse as never crossed; and the reference engine's ``run``
+   configs/glu_water.json (649 atoms, grid 1³, the plain tally path;
+   blocks of 2 steps) ``titrate`` rex (its replicas one batch on the
+   reference engine: one run call of both a block, one list build for
+   both a rebuild_every block, counted) and metad (its walkers one
+   batch: one run call of both a chunk), ``calibrate`` TI, and
+   ``calibrate`` metad, which must refuse as never crossed; and the
+   reference engine's ``run``
    with Ewald k-space, whose first energy must be Engine +
    make_kspace_fn's. K1 launches equal force evaluations of (a) and (b);
    no kernel in (c).
@@ -157,10 +160,19 @@ available or the port's package is not beside it.
    Ewald called on MTS boundary steps only (its calls counted), no sync
    in a block; then compute_Hs with use_pallas_ww=True: K2 once, the sum
    rule within 1e-3 with k-space.
-12. Reference campaign, cut depth: make_rex_runner with 2 replicas at
-   pH 4 and 5 (one 20-step block and a swap; the pH multiset kept), and
-   calibrate_dG_ref (7 nodes × (10 + 20) steps after 100 FIRE steps;
-   finite).
+12. Reference campaign, cut depth: make_rex_runner on R = 4 replicas
+   of the reference path's 24,001-atom state at pH 4.0–4.75 (the JAX
+   package's __graft_entry__ replica leg at full width) as one batch:
+   one 20-step block and a swap, sync-free, with one run call for all R
+   and one list build for the batch a rebuild_every block (counted), no
+   tile kernel, finite, no overflow, the pH multiset kept; the batch's
+   list build peak memory; one 20-step run of the four batched and
+   looped from one state with generators of the same seeds (λ 1e-4,
+   positions 1e-3 Å, h_conserved 1e-4 relative: TOL_BATCH_LOOP) and
+   each form's ms per walker-step; one batched block under
+   torch.profiler (device busy ms and idle share a step); the
+   ``[reference rex batch]`` line. Then calibrate_dG_ref (7 nodes ×
+   (5 + 10) steps after 50 FIRE steps; finite).
 
 Every path zeroes the kernels' launch counters just before it runs and
 reads them just after; each kernel of a path must have launched once per
@@ -1661,41 +1673,194 @@ def ewald_tiled_path(ts, st, cfg, ep, n_warm=2, n_meas=5):
     return dict(counts=counts, tally_counts=tally_counts, result=res, hs=hs)
 
 
-def reference_campaign(ref, phs=(4.0, 5.0), rex_steps=20, ti=(10, 20),
-                       n_min=100):
+class _RefProbe:
+    """Records, while active, the batch size of every call of a run that
+    Engine.make_run returns and of every neighbour-list build the
+    reference engine makes (1 for a single state)."""
+
+    def __enter__(self):
+        from constant_ph_tpu_torch import engine as engine_mod
+
+        self.runs = runs = []
+        self.builds = builds = []
+        self._mod = engine_mod
+        self._make_run = make_run = engine_mod.Engine.make_run
+        self._build = build = engine_mod.build_neighbor_list
+
+        def counted_make_run(eng, n_steps):
+            run = make_run(eng, n_steps)
+
+            def counted(state, nbr, generators=None):
+                runs.append(int(state.x.shape[0]) if state.x.ndim == 3
+                            else 1)
+                return run(state, nbr, generators)
+            return counted
+
+        def counted_build(x, *args):
+            builds.append(int(x.shape[0]) if x.ndim == 3 else 1)
+            return build(x, *args)
+
+        engine_mod.Engine.make_run = counted_make_run
+        engine_mod.build_neighbor_list = counted_build
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.Engine.make_run = self._make_run
+        self._mod.build_neighbor_list = self._build
+
+
+def _ref_batch_vs_looped(eng, batch, nbrs, seeds, steps, sync):
+    """One run of the reference replicas as the batch and one by one
+    from the same state with generators of the same seeds: λ, positions
+    and h_conserved within TOL_BATCH_LOOP, and each form's ms per
+    walker-step (host clock, synchronised)."""
+    from constant_ph_tpu_torch.parallel import replica
+
+    run = eng.make_run(steps)
+    dev = batch.x.device
+    R = batch.x.shape[0]
+    sync()
+    t0 = time.perf_counter()
+    got, _, obs = run(batch, nbrs, replica.replica_generators(seeds, dev))
+    sync()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = [run(st, nb, g) for st, nb, g in zip(
+        replica.unstack_replicas(batch), replica.unstack_replicas(nbrs),
+        replica.replica_generators(seeds, dev))]
+    sync()
+    t_loop = time.perf_counter() - t0
+    diff = dict(lam=0.0, x=0.0, h_rel=0.0)
+    for r, (st, _, o) in enumerate(outs):
+        diff["lam"] = max(diff["lam"], float((obs.lam[r] - o.lam).abs().max()))
+        diff["x"] = max(diff["x"], float((got.x[r] - st.x).abs().max()))
+        diff["h_rel"] = max(diff["h_rel"], float(
+            (obs.h_conserved[r] - o.h_conserved).abs().max()
+            / o.h_conserved.abs().max()))
+    return dict(batched_ms_per_walker_step=t_batch / (R * steps) * 1e3,
+                looped_ms_per_walker_step=t_loop / (R * steps) * 1e3,
+                batched_ms_per_step=t_batch / steps * 1e3,
+                max_diff=diff, bars=TOL_BATCH_LOOP)
+
+
+def reference_campaign(ref, phs=None, rex_steps=20, ti=(5, 10),
+                       n_min=50, dev="cuda"):
     """The campaign tools on the reference engine, cut in depth, on the
-    reference path's system and Ewald: make_rex_runner with a replica a
-    pH from the final state (one block and a swap; the pH multiset kept,
-    finite, no overflow), then calibrate_dG_ref (7 nodes × ti steps after
-    n_min FIRE steps; the result finite)."""
+    reference path's system and Ewald. (a) make_rex_runner on R = 4
+    replicas of the final 24,001-atom state at PME_REX_PHS (the JAX
+    package's __graft_entry__ replica leg at full width, the pH rungs of
+    the PME REX leg) as one batch: one REX block under sync-debug "error"
+    with its run calls and list builds counted (one run call for all R,
+    one build a rebuild_every block for the batch; no tile kernel), the
+    list build's peak memory at R = 4, then one run of the replicas
+    batched and looped from one state with generators of the same seeds
+    (deltas within TOL_BATCH_LOOP) and one batched block under the
+    profiler (device busy ms and idle share of a batched step); gates:
+    finite, no overflow, the pH multiset kept. (b) calibrate_dG_ref (7
+    nodes × ti steps after n_min FIRE steps; the result finite)."""
     import dataclasses
 
     import torch
 
     from constant_ph_tpu_torch.ops.ewald import make_kspace_fn
     from constant_ph_tpu_torch.parallel import replica
+    from constant_ph_tpu_torch.profiling import profile_block
     from constant_ph_tpu_torch.titration import calibrate_dG_ref
 
+    phs = PME_REX_PHS if phs is None else phs
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     t_phase = time.perf_counter()
-    eng, state, nbr = ref["eng"], ref["sys"].state, ref["nbr"]
+    eng, state = ref["eng"], ref["sys"].state
+    R = len(phs)
     batch = replica.stack_replicas([
         dataclasses.replace(state, pH=torch.full_like(state.pH, ph))
         for ph in phs])
-    nbrs = replica.stack_replicas([nbr] * len(phs))
-    gen = torch.Generator(device=state.x.device).manual_seed(9)
-    block = replica.make_rex_runner(eng, rex_steps)
+    # the list build of the R replicas in one pass: its peak memory
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
-    batch, nbrs, gen, acc, last = block(batch, nbrs, gen, 0)
-    torch.cuda.synchronize()
-    rex = dict(pH=batch.pH.tolist(), accepted=acc.tolist(),
-               T=last.temp.tolist(),
-               finite=bool(replica.replica_finite(batch).all()),
-               overflow=bool(nbrs.overflow.any()),
-               seconds=time.perf_counter() - t0)
-    log(f"[reference rex] {json.dumps(rex)}")
-    if (sorted(rex["pH"]) != sorted(phs) or not rex["finite"]
+    nbrs = eng.build_neighbors(batch.x, batch.box)
+    sync()
+    t_build = time.perf_counter() - t0
+    build_peak = ((torch.cuda.max_memory_allocated() - base) / 2**30
+                  if cuda else 0.0)
+    total = (torch.cuda.get_device_properties(0).total_memory / 2**30
+             if cuda else 0.0)
+    resident = torch.cuda.memory_allocated() / 2**30 if cuda else 0.0
+    gen = torch.Generator(device=state.x.device).manual_seed(9)
+
+    # -- (a) one REX block of the batch: counts zeroed just before ---------
+    with _RefProbe() as probe:
+        block = replica.make_rex_runner(eng, rex_steps)
+        # the generators the runner makes at its first call, made here,
+        # outside the sync-free block
+        block.generators = replica.replica_generators(
+            [replica._fold_in(eng.cfg.seed, r) for r in range(R)],
+            state.x.device)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.set_sync_debug_mode("error")
+        zero_counts()
+        t0 = time.perf_counter()
+        out, nbrs_out, gen, acc, last = block(batch, nbrs, gen, 0)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+        sync()
+        t_block = time.perf_counter() - t0
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    n_blocks = -(-rex_steps // eng.cfg.rebuild_every)
+    cmp = _ref_batch_vs_looped(eng, batch, nbrs,
+                               [5000 + r for r in range(R)], rex_steps,
+                               sync)
+    # one batched block under the profiler
+    run_block = eng.make_run(eng.cfg.rebuild_every)
+    gens = replica.replica_generators([6000 + r for r in range(R)],
+                                      state.x.device)
+    if cuda:
+        _, bp = profile_block(lambda b: run_block(b, nbrs_out, gens), out,
+                              eng.cfg.rebuild_every)
+        busy = bp.busy_ms_per_step
+    else:
+        busy = float("nan")
+    rex = dict(
+        R=R, atoms=int(state.x.shape[0]), steps=rex_steps, pH=phs,
+        pH_after=out.pH.tolist(), accepted=acc.tolist(),
+        T=last.temp.tolist(),
+        finite=bool(replica.replica_finite(out).all()),
+        overflow=bool(nbrs_out.overflow.any()),
+        run_calls=probe.runs, list_builds=probe.builds,
+        builds_expected=n_blocks, counts=counts,
+        block_ms_per_walker_step=t_block / (R * rex_steps) * 1e3,
+        batched_ms_per_walker_step=cmp["batched_ms_per_walker_step"],
+        looped_ms_per_walker_step=cmp["looped_ms_per_walker_step"],
+        device_busy_ms_per_step=busy,
+        idle_share=1.0 - busy / cmp["batched_ms_per_step"],
+        build_s=t_build, build_peak_gib=build_peak,
+        build_peak_gib_per_replica=build_peak / R,
+        block_peak_gib=peak, resident_gib=resident, card_gib=total,
+        # the replicas a list build could take beside what is resident
+        r_max_build=(int((total - resident) / (build_peak / R))
+                     if build_peak > 0 else None),
+        max_diff=cmp["max_diff"], bars=TOL_BATCH_LOOP,
+        card=gpu_name_and_power() if cuda else None)
+    log(f"[reference rex batch] {json.dumps(rex)}")
+    if (sorted(rex["pH_after"]) != sorted(phs) or not rex["finite"]
             or rex["overflow"]):
         raise RuntimeError(f"reference replica exchange failed ({rex})")
+    if probe.runs != [R] or probe.builds != [R] * n_blocks:
+        raise RuntimeError(f"the reference REX block made run calls "
+                           f"{probe.runs} and builds {probe.builds}, not "
+                           f"one batched run and {n_blocks} batched builds")
+    if counts != {"ww_pair": 0, "ww_tally": 0}:
+        raise RuntimeError("the reference REX block launched a tile kernel")
+    if any(cmp["max_diff"][k] > TOL_BATCH_LOOP[k] for k in TOL_BATCH_LOOP):
+        raise RuntimeError(f"the batched reference run left the looped "
+                           f"one ({rex})")
     t0 = time.perf_counter()
     dG = calibrate_dG_ref(ref["sys"], ref["cfg"],
                           kspace_fn=make_kspace_fn(ref["ep"]),
@@ -2408,7 +2573,9 @@ def hewl_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, n_min=None,
     return out
 
 
-CLI_HEWL = dict(n_min=400, steps=240, every=120, restart_steps=120)
+# FIRE cut to 100 steps: the CLI's runs gate on finite output, not on a
+# temperature
+CLI_HEWL = dict(n_min=100, steps=240, every=120, restart_steps=120)
 GLU_CONFIG = "configs/glu_water.json"
 DECK_TYPES = [6, 7]          # hewl's water O and H types, 1-based
 # the reference engine's force parity of a deck-built system against its
@@ -2629,13 +2796,15 @@ def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
         """One CLI command with the counts zeroed before and read after;
         K1 once per force evaluation (FIRE's plus the probed runs')."""
         zero_counts()
+        t0 = time.perf_counter()
         with _ElasticProbe(dev) as probe:
             summary, err = _cli(argv + dev_args)
         counts = read_counts()
         evals = fire + sum(c["evals"] for c in probe.calls)
         want = {"ww_pair": evals if expect_kernel else 0, "ww_tally": 0}
         log(f"[cli {probe_label} launches] {json.dumps(counts)}, force "
-            f"evaluations {evals}; runs {json.dumps(probe.calls)}")
+            f"evaluations {evals}; runs {json.dumps(probe.calls)}; "
+            f"{time.perf_counter() - t0:.1f} s")
         if counts != want:
             raise RuntimeError(f"cli {probe_label}: launches {counts}, "
                                f"expected {want}")
@@ -2757,19 +2926,34 @@ def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
     del system
 
     # -- (c) titrate and calibrate on the small box; the Ewald repair -----
+    # depth cut, host-bound on 649 atoms: blocks of 2 steps, so a metad
+    # chunk (50 · rebuild_every) is 100 steps; 20 FIRE steps; TI at 10 +
+    # 5 + 10 steps a node; 200 metad calibration steps (with 100 the one
+    # walker can pass the crossing guard, which this check needs to refuse)
     with open(glu) as fh:
         gconf = json.load(fh)
-    gconf["engine"]["rebuild_every"] = 5
+    gconf["engine"]["rebuild_every"] = 2
     gconf["run"] = {k: v for k, v in gconf["run"].items()
                     if k not in ("checkpoint", "output")}
+    n_swaps, per_swap, met_steps = 2, 10, 100
     cfg_c = _write_json(os.path.join(d, "glu.json"), dict(
-        gconf, run=dict(gconf["run"], steps=250, minimize_steps=50,
-                        steps_per_swap=10, n_swaps=2)))
+        gconf, run=dict(gconf["run"], steps=met_steps, minimize_steps=20,
+                        steps_per_swap=per_swap, n_swaps=n_swaps)))
     t0 = time.perf_counter()
-    rex, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6"], "titrate rex",
-                           expect_kernel=False)
+    # the rex replicas run as one batch on the reference engine: one run
+    # call a block, one list build for both at the start and one a
+    # rebuild_every block
+    with _RefProbe() as rex_probe:
+        rex, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6"],
+                               "titrate rex", expect_kernel=False)
+    want_builds = [2] * (1 + n_swaps * -(-per_swap // 2))
+    if rex_probe.runs != [2] * n_swaps or rex_probe.builds != want_builds:
+        raise RuntimeError(f"cli titrate rex made run calls "
+                           f"{rex_probe.runs} and builds "
+                           f"{rex_probe.builds}, not one batched call a "
+                           f"block and {want_builds}")
     # the metad walkers run as one batch: one run call of both a chunk
-    # (250 steps in chunks of 50 · rebuild_every: one chunk)
+    # (met_steps in chunks of 50 · rebuild_every: one chunk)
     with _RunProbe() as walker_runs:
         met, _, _, _ = command(["titrate", cfg_c, "--ph", "4,6", "--method",
                                 "metad"], "titrate metad",
@@ -2777,11 +2961,11 @@ def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
     if walker_runs.calls != [2]:
         raise RuntimeError(f"cli titrate metad ran {walker_runs.calls}, not "
                            "one batched call of its two walkers")
-    ti, _, _, _ = command(["calibrate", cfg_c, "--equil", "20",
-                           "--window-equil", "10", "--samples", "20"],
+    ti, _, _, _ = command(["calibrate", cfg_c, "--equil", "10",
+                           "--window-equil", "5", "--samples", "10"],
                           "calibrate ti", expect_kernel=False)
     try:
-        command(["calibrate", cfg_c, "--equil", "20", "--samples", "400",
+        command(["calibrate", cfg_c, "--equil", "10", "--samples", "200",
                  "--method", "metad"], "calibrate metad",
                 expect_kernel=False)
         refused = False
@@ -2790,6 +2974,7 @@ def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
         log(f"  refused: {str(err)[:100]}")
     fracs = rex["deprotonated_fraction"] + met["deprotonated_fraction"]
     res_c = dict(
+        rex_run_calls=rex_probe.runs, rex_list_builds=rex_probe.builds,
         metad_run_calls=walker_runs.calls,
         rex_keys=sorted(rex), metad_keys=sorted(met), ti_keys=sorted(ti),
         fractions=fracs, metad_refused=refused,
@@ -2804,7 +2989,7 @@ def cli_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, glu=GLU_CONFIG,
                  "hh_reference", "steps"])
             and res_c["ti_keys"] == sorted(
                 ["dG_ref", "lambda_nodes", "dUdlam_profile"])
-            and met["steps"] == 250 and res_c["finite"] and refused
+            and met["steps"] == met_steps and res_c["finite"] and refused
             and all(0.0 <= f <= 1.0 for f in fracs)):
         raise RuntimeError(f"cli titrate/calibrate failed ({res_c})")
 

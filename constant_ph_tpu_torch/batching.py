@@ -17,7 +17,15 @@ import torch
 
 class PerReplica:
     """Marks a dataclass whose tensor fields all lead with the replica axis
-    in a batch (TiledState, TiledForces)."""
+    in a batch (TiledState, TiledForces, SystemState, NeighborList,
+    engine.Forces). ``_probe`` names, for the classes a batch is told by,
+    a field and its dims in one replica; a batch has one more."""
+
+    _probe = ()
+
+    def is_batch(self) -> bool:
+        name, ndim = self._probe
+        return getattr(self, name).ndim > ndim
 
 
 def _lift(a):
@@ -44,15 +52,16 @@ def _squeeze(out):
 
 def state_batched(fn):
     """Decorator for a function or method written for a batch whose first
-    per-replica dataclass argument is a TiledState. A call with one state
-    (``wx`` without the replica axis) runs as a batch of one: each
-    per-replica dataclass and tensor argument gains a leading axis of 1, a
-    torch.Generator becomes a list of one, and each tensor of the result
-    (dataclass fields included) loses the axis again."""
+    probed per-replica dataclass argument (a TiledState, SystemState or
+    NeighborList) tells a batch from one replica. A call with one replica
+    (``wx`` of 3 dims, ``x`` of 2, ``idx`` of 2) runs as a batch of one:
+    each per-replica dataclass and tensor argument gains a leading axis of
+    1, a torch.Generator becomes a list of one, and each tensor of the
+    result (dataclass fields included) loses the axis again."""
     @functools.wraps(fn)
     def wrapper(*args, **kw):
-        st = next(a for a in args if isinstance(a, PerReplica))
-        if st.wx.ndim != 3:
+        st = next(a for a in args if isinstance(a, PerReplica) and a._probe)
+        if st.is_batch():
             return fn(*args, **kw)
         return _squeeze(fn(*map(_lift, args),
                            **{k: _lift(v) for k, v in kw.items()}))
@@ -95,6 +104,21 @@ def replica_of(batch, r: int = 0):
     return dataclasses.replace(batch, **{
         f.name: getattr(batch, f.name)[r] for f in dataclasses.fields(batch)
         if isinstance(getattr(batch, f.name), torch.Tensor)})
+
+
+def generators_for(R: int, generators, default):
+    """One torch.Generator a replica of a batch of R: ``generators``, or
+    ``default`` (an engine's own) for a batch of one."""
+    if generators is None:
+        if R != 1:
+            raise ValueError(f"a batch of {R} replicas needs one "
+                             "torch.Generator a replica")
+        return [default]
+    generators = list(generators)
+    if len(generators) != R:
+        raise ValueError(f"{len(generators)} generators for a batch of "
+                         f"{R} replicas")
+    return generators
 
 
 def bview(t, ndim: int):

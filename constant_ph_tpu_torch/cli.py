@@ -342,13 +342,14 @@ def cmd_titrate(args):
         dataclasses.replace(st0, pH=torch.tensor(ph, dtype=st0.pH.dtype,
                                                  device=dev))
         for ph in pHs])
-    nbr = eng.build_neighbors(st0.x, st0.box)
-    nbrs = stack_replicas([nbr] * len(pHs))
+    # one list build for the batch; each replica keeps its own list
+    nbrs = eng.build_neighbors(batched.x, batched.box)
 
     steps_per_swap = int(cfg.get("run", {}).get("steps_per_swap", 100))
     n_swaps = int(cfg.get("run", {}).get("n_swaps", 20))
-    # replica r's Langevin noise comes from its own generator (seeded from
-    # engine.seed and r); this one draws the swap uniforms
+    # the replicas run as one batch, one run call a block; replica r's
+    # Langevin noise comes from its own generator (seeded from engine.seed
+    # and r); this one draws the swap uniforms
     block = make_rex_runner(eng, steps_per_swap)
     gen = torch.Generator(device=dev).manual_seed(ecfg.seed)
     frac = torch.zeros(len(pHs), device=dev)

@@ -15,6 +15,18 @@ keeps it, field by field with torch.where, where the skin trigger fired
 cost of one list build a block. The λ kick schedule of lambda_nevery reads
 the state's host step counter. Random numbers come from a
 ``torch.Generator``: the engine's own, or one the caller passes.
+
+Replicas are a batch dimension, as in the tiled engine: every method takes
+a batch of R replicas (a SystemState and a NeighborList whose tensor
+fields lead with R, as parallel.replica.stack_replicas makes them;
+``step_host`` shared) and moves them all with one sequence of launches,
+the JAX package's ``jax.vmap(make_run(n))(states, nbrs)``: one list build
+a block for all R, each replica keeping its own list unless its own skin
+trigger fired. Energies, temperatures and ``h_conserved`` come back (R,),
+observables (R, T, …). Replica r draws its Langevin noise from
+``generators[r]``, in the order a run of that replica alone draws it (v,
+then v_λ, each step). A single state runs through the same code as a
+batch of one (batching.state_batched), with one generator.
 """
 from __future__ import annotations
 
@@ -24,6 +36,11 @@ from typing import Callable, Optional
 import torch
 
 from constant_ph_tpu_torch import lambda_dyn, units
+from constant_ph_tpu_torch.batching import (
+    PerReplica,
+    generators_for,
+    state_batched,
+)
 from constant_ph_tpu_torch.forcefield import ForceField
 from constant_ph_tpu_torch.integrators import (
     kinetic_energy,
@@ -129,7 +146,9 @@ def full_float32_matmuls():
 
 
 @dataclasses.dataclass
-class Forces:
+class Forces(PerReplica):
+    """One replica's shapes; a batch leads every field with R."""
+
     f: torch.Tensor          # (N, 3)
     f_lam: torch.Tensor      # (S,)
     e_lj: torch.Tensor
@@ -199,22 +218,28 @@ class Engine:
     # -- neighbour structure ----------------------------------------------
 
     def build_neighbors(self, x, box) -> NeighborList:
+        """One replica's list, or a batch's (x (R, N, 3), box (R, 3)) in
+        one build."""
         return build_neighbor_list(x, box, self.nbr_params, self.excl_idx,
                                    self.excl_code, self.stencil_offsets)
 
     # -- forces -----------------------------------------------------------
 
     def charges(self, lam):
+        """Charges (…, N) of λ (…, S)."""
         if self.spec is None:
-            return self.ff.q0
+            return self.ff.q0.expand(lam.shape[:-1] + self.ff.q0.shape)
         return lambda_dyn.charges(self.ff.q0, self.spec, lam)
 
+    @state_batched
     def compute_forces(self, x, lam, box, pH, nbr: NeighborList) -> Forces:
+        """Forces of a batch (x (R, N, 3), lam (R, S), box (R, 3), pH
+        (R,), nbr a batch of lists), or of one replica."""
         ff = self.ff
         q = self.charges(lam)
         pr = pair_forces(x, q, ff.type, box, nbr, ff.pair)
         f, phi, eatom = pr.force, pr.phi, pr.eatom
-        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        zero = x.new_zeros(x.shape[:1])
         e_bonded = e_kspace = zero
 
         if self.bonded_fn is not None:
@@ -238,10 +263,10 @@ class Engine:
         if self.spec is not None:
             dUdlam = lambda_dyn.dq_dlambda_dot(self.spec, phi)
             f_lam, u_site = lambda_dyn.lambda_force(
-                lam, dUdlam, self.spec, pH, self.cfg.T, self.bias)
-            e_site = torch.sum(u_site)
+                lam, dUdlam, self.spec, pH[:, None], self.cfg.T, self.bias)
+            e_site = torch.sum(u_site, dim=-1)
         else:
-            dUdlam = f_lam = x.new_zeros((0,))
+            dUdlam = f_lam = x.new_zeros(x.shape[:1] + (0,))
             e_site = zero
         return Forces(f=f, f_lam=f_lam, e_lj=pr.e_lj, e_coul=pr.e_coul,
                       e_bonded=e_bonded, e_kspace=e_kspace, e_site=e_site,
@@ -249,9 +274,14 @@ class Engine:
 
     # -- observables ------------------------------------------------------
 
+    def _ndof(self, x):
+        return 3 * x.shape[-2] - 3 - self.n_constraints
+
+    @state_batched
     def observe(self, state: SystemState, frc: Forces) -> Observables:
+        """Observables of a batch (fields (R, …)), or of one state."""
         ke = kinetic_energy(state.v, self.ff.mass)
-        ndof = 3 * state.x.shape[0] - 3 - self.n_constraints
+        ndof = self._ndof(state.x)
         temp = 2.0 * ke / (ndof * units.BOLTZ)
         if self.spec is not None:
             ke_lam = lambda_dyn.lambda_kinetic(state.v_lam, self.spec)
@@ -263,7 +293,8 @@ class Engine:
             e_bonded=frc.e_bonded, e_kspace=frc.e_kspace, e_site=frc.e_site,
             ke=ke, temp=temp, ke_lam=ke_lam, temp_lam=temp_lam,
             h_conserved=frc.e_pot + ke + ke_lam - state.ext_work,
-            h_valid=torch.ones((), dtype=torch.bool, device=ke.device),
+            h_valid=torch.ones(ke.shape, dtype=torch.bool,
+                               device=ke.device),
             ext_work=state.ext_work, lam=state.lam, v_lam=state.v_lam,
             dUdlam=frc.dUdlam)
 
@@ -311,24 +342,31 @@ class Engine:
         return (torch.where(odd, 2.0 * rng - y, y) + lo,
                 torch.where(odd, -v_lam, v_lam))
 
+    @state_batched
     def step(self, state: SystemState, frc: Forces, nbr: NeighborList,
-             generator=None):
-        """One BAOAB / velocity-Verlet / NHC step for atoms and λ; returns
-        (state', forces at its positions). Langevin noise comes from
-        ``generator`` (default: the engine's)."""
-        gen = self.generator if generator is None else generator
+             generators=None):
+        """One BAOAB / velocity-Verlet / NHC step for atoms and λ of a
+        batch, or of one state; returns (state', forces at its positions).
+        Langevin noise comes from ``generators`` (one a replica; for one
+        state a Generator, default: the engine's); a batch without Langevin
+        noise needs none."""
         cfg = self.cfg
         mass = self.ff.mass
         dt = cfg.dt
         inv_m = units.FTM2V / mass[:, None]
         move_lam = self.spec is not None and not cfg.lambda_frozen
         inv_ml = units.FTM2V / self.spec.m_lambda if move_lam else None
+        if cfg.thermostat == "langevin" or (
+                move_lam and cfg.lambda_thermostat == "langevin"):
+            gens = generators_for(state.x.shape[0], generators,
+                                  self.generator)
 
         v, v_lam = state.v, state.v_lam
         x, lam = state.x, state.lam
+        pH = state.pH[:, None]               # against (R, S) λ arrays
         use_nhc = cfg.thermostat == "nhc"
         nhc_xi, nhc_lam_xi = state.nhc_xi, state.nhc_lam_xi
-        ndof = 3 * x.shape[0] - 3 - self.n_constraints
+        ndof = self._ndof(x)
         kT = units.BOLTZ * cfg.T
         # cumulative KE change of every thermostat operation: h_conserved
         # stays an oracle under NHC and Langevin, not just NVE
@@ -337,13 +375,13 @@ class Engine:
         if use_nhc:
             ke2 = 2.0 * kinetic_energy(v, mass)
             scale, nhc_xi = nhc_halfstep(nhc_xi, ke2, ndof, kT, cfg.tau, dt)
-            v = v * scale
+            v = v * scale[:, None, None]
             ext_work = ext_work + 0.5 * ke2 * (scale * scale - 1.0)
         if move_lam and cfg.lambda_thermostat == "nhc":
             ke2l = 2.0 * lambda_dyn.lambda_kinetic(v_lam, self.spec)
             scale_l, nhc_lam_xi = nhc_halfstep(
                 nhc_lam_xi, ke2l, self.n_sites, kT, cfg.lambda_tau, dt)
-            v_lam = v_lam * scale_l
+            v_lam = v_lam * scale_l[:, None]
             ext_work = ext_work + 0.5 * ke2l * (scale_l * scale_l - 1.0)
 
         # B: half kick
@@ -351,13 +389,12 @@ class Engine:
         if move_lam:
             k1 = self._lam_kick_scale(state.step_host, 0)
             v_lam = v_lam + (0.5 * dt) * k1 * self._lam_slow_force(
-                frc.f_lam, state.lam, state.pH) * inv_ml
+                frc.f_lam, state.lam, pH) * inv_ml
 
         # A: half drift
         x = x + (0.5 * dt) * v
         if move_lam:
-            lam, v_lam = self._lam_drift(lam, v_lam, state.pH, 0.5 * dt,
-                                         inv_ml)
+            lam, v_lam = self._lam_drift(lam, v_lam, pH, 0.5 * dt, inv_ml)
 
         # O: Langevin OU; its heat is booked on constraint-projected
         # copies (the dynamics keep the raw velocities)
@@ -368,11 +405,11 @@ class Engine:
                 return kinetic_energy(v_, mass)
 
             ke_o0 = ke_p(v)
-            v = langevin_o_step(gen, v, mass, cfg.T, cfg.gamma, dt)
+            v = langevin_o_step(gens, v, mass, cfg.T, cfg.gamma, dt)
             ext_work = ext_work + ke_p(v) - ke_o0
         if move_lam and cfg.lambda_thermostat == "langevin":
             kel_o0 = lambda_dyn.lambda_kinetic(v_lam, self.spec)
-            v_lam = langevin_o_step(gen, v_lam, self.spec.m_lambda, cfg.T,
+            v_lam = langevin_o_step(gens, v_lam, self.spec.m_lambda, cfg.T,
                                     cfg.lambda_gamma, dt)
             ext_work = (ext_work
                         + lambda_dyn.lambda_kinetic(v_lam, self.spec)
@@ -381,8 +418,7 @@ class Engine:
         # A: half drift
         x = x + (0.5 * dt) * v
         if move_lam:
-            lam, v_lam = self._lam_drift(lam, v_lam, state.pH, 0.5 * dt,
-                                         inv_ml)
+            lam, v_lam = self._lam_drift(lam, v_lam, pH, 0.5 * dt, inv_ml)
             lam, v_lam = self._reflect_lam(lam, v_lam)
 
         # SHAKE positions onto the constraint manifold
@@ -396,7 +432,7 @@ class Engine:
         if move_lam:
             k2 = self._lam_kick_scale(state.step_host, 1)
             v_lam = v_lam + (0.5 * dt) * k2 * self._lam_slow_force(
-                frc_new.f_lam, lam, state.pH) * inv_ml
+                frc_new.f_lam, lam, pH) * inv_ml
 
         if use_nhc:
             ke2 = 2.0 * kinetic_energy(v, mass)
@@ -407,13 +443,13 @@ class Engine:
             if self.constraints is not None:
                 ke2_p = 2.0 * kinetic_energy(
                     self.constraints.velocities(x, v, state.box), mass)
-            v = v * scale
+            v = v * scale[:, None, None]
             ext_work = ext_work + 0.5 * ke2_p * (scale * scale - 1.0)
         if move_lam and cfg.lambda_thermostat == "nhc":
             ke2l = 2.0 * lambda_dyn.lambda_kinetic(v_lam, self.spec)
             scale_l, nhc_lam_xi = nhc_halfstep(
                 nhc_lam_xi, ke2l, self.n_sites, kT, cfg.lambda_tau, dt)
-            v_lam = v_lam * scale_l
+            v_lam = v_lam * scale_l[:, None]
             ext_work = ext_work + 0.5 * ke2l * (scale_l * scale_l - 1.0)
 
         # RATTLE: project constraint-violating velocity components
@@ -429,15 +465,20 @@ class Engine:
     # -- run loop ---------------------------------------------------------
 
     def make_run(self, n_steps: int):
-        """run(state, nbr, generator=None) → (state, nbr, obs): blocks of
-        ``rebuild_every`` steps (n_steps rounded up to whole blocks), the
-        list rebuilt at a block start where some atom moved more than
-        skin/2 (neighbors.needs_rebuild), obs stacked per step. Nothing is
-        read back to the host."""
+        """run(batch, nbrs, generators=None) → (batch, nbrs, obs (R, T,
+        …)): blocks of ``rebuild_every`` steps (n_steps rounded up to
+        whole blocks) of R replicas with one sequence of launches, replica
+        r's noise from generators[r]. At a block start one list build for
+        the batch; each replica takes the new list only where some of its
+        atoms moved more than skin/2 (neighbors.needs_rebuild).
+        run(state, nbr, generator=None) runs one state as a batch of one,
+        obs (T, …), its noise from ``generator`` (default: the engine's).
+        Nothing is read back to the host."""
         block = self.cfg.rebuild_every
         n_blocks = -(-n_steps // block)
 
-        def run(state: SystemState, nbr: NeighborList, generator=None):
+        @state_batched
+        def run(state: SystemState, nbr: NeighborList, generators=None):
             rows = []
             for _ in range(n_blocks):
                 nbr = select(
@@ -446,15 +487,16 @@ class Engine:
                 frc = self.compute_forces(state.x, state.lam, state.box,
                                           state.pH, nbr)
                 for _ in range(block):
-                    state, frc = self.step(state, frc, nbr, generator)
+                    state, frc = self.step(state, frc, nbr, generators)
                     rows.append(self.observe(state, frc))
-            return state, nbr, Observables.stack(rows)
+            return state, nbr, Observables.stack(rows, dim=1)
 
         return run
 
     def run(self, state: SystemState, n_steps: int, nbr=None,
             generator=None):
-        """Build the list (unless given) and run n_steps."""
+        """Build the list (unless given) and run n_steps: one state with
+        one generator, or a batch with one a replica."""
         if nbr is None:
             nbr = self.build_neighbors(state.x, state.box)
         return self.make_run(n_steps)(state, nbr, generator)
@@ -463,9 +505,9 @@ class Engine:
 
     def compute_Hs(self, state: SystemState, nbr, groupH_mask):
         """HA = Σ eatom over all atoms; HB = the same without the
-        titratable-H group."""
+        titratable-H group ((R,) each for a batch)."""
         frc = self.compute_forces(state.x, state.lam, state.box, state.pH,
                                   nbr)
-        HA = torch.sum(frc.eatom)
-        HB = torch.sum(torch.where(groupH_mask, 0.0, frc.eatom))
+        HA = torch.sum(frc.eatom, dim=-1)
+        HB = torch.sum(torch.where(groupH_mask, 0.0, frc.eatom), dim=-1)
         return HA, HB

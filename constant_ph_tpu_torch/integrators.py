@@ -1,7 +1,9 @@
 """Kinetic energy, velocity initialisation, the Langevin O-step of the
 reference engine and the Nosé–Hoover chain (port of
 constant_ph_tpu/integrators.py). The tiled engine's O-step lives inline in
-tiled/engine.py. Random numbers come from the caller's torch.Generator."""
+tiled/engine.py; both engines draw their noise through ``replica_randn``.
+Random numbers come from the caller's torch.Generator, one a replica of a
+batch."""
 from __future__ import annotations
 
 import math
@@ -12,19 +14,30 @@ from constant_ph_tpu_torch import units
 
 
 def kinetic_energy(v, mass):
-    """½ Σ m v² in kcal/mol (v in Å/fs, m in g/mol)."""
-    return 0.5 * units.MVV2E * torch.sum(mass * torch.sum(v * v, dim=-1))
+    """½ Σ m v² in kcal/mol (v in Å/fs, m in g/mol); v (…, N, 3) gives
+    one energy a replica, (…)."""
+    return 0.5 * units.MVV2E * torch.sum(mass * torch.sum(v * v, dim=-1),
+                                         dim=-1)
 
 
-def langevin_o_step(generator: torch.Generator, v, mass, T, gamma, dt):
-    """Ornstein–Uhlenbeck exact update v ← c1·v + c2·ξ (gamma in 1/fs),
-    ξ drawn from ``generator``; v is (N, 3) with mass (N,), or has mass's
-    shape."""
+def replica_randn(like, generators):
+    """Standard normal noise shaped like the batch ``like``: replica r's
+    slice drawn from generators[r], the numbers a run of that replica
+    alone draws (one small launch a replica)."""
+    noise = torch.empty_like(like)
+    for r, gen in enumerate(generators):
+        noise[r].normal_(generator=gen)
+    return noise
+
+
+def langevin_o_step(generators, v, mass, T, gamma, dt):
+    """Ornstein–Uhlenbeck exact update v ← c1·v + c2·ξ (gamma in 1/fs) of
+    a batch: v is (R, N, 3) with mass (N,), or (R, S) with mass (S,);
+    replica r's ξ is drawn from ``generators[r]``."""
     c1 = math.exp(-gamma * dt)
     c2 = torch.sqrt((1.0 - c1 * c1) * units.BOLTZ * T / (mass * units.MVV2E))
-    noise = torch.randn(v.shape, generator=generator, dtype=v.dtype,
-                        device=v.device)
-    if v.ndim == 2:
+    noise = replica_randn(v, generators)
+    if v.ndim == 3:
         return c1 * v + c2[:, None] * noise
     return c1 * v + c2 * noise
 

@@ -16,6 +16,14 @@ several atoms write its last slot (on CUDA the winner is arbitrary) and the
 overflow flag is set. ``torch.topk`` may order equal distances otherwise
 than ``jax.lax.top_k``: each row holds the same neighbours, not
 necessarily in the same order.
+
+A batch of R replicas (x (R, N, 3), box (R, 3); the JAX package's
+``jax.vmap``) is built in one pass: one stable argsort over all R·N cell
+keys, replica r's offset by r·G, an (R·G, C) cell table, (R, N, S·C)
+candidates and one ``topk``; each replica's list is bitwise its own
+build's. The list's fields then lead with R and ``overflow``,
+``max_displacement2`` and ``needs_rebuild`` are (R,). One replica is
+built as a batch of one.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from constant_ph_tpu_torch.batching import PerReplica, replica_of
 from constant_ph_tpu_torch.state import min_image, wrap
 
 
@@ -41,7 +50,11 @@ class NeighborParams:
 
 
 @dataclasses.dataclass
-class NeighborList:
+class NeighborList(PerReplica):
+    """One replica's shapes; a batch leads every field with R."""
+
+    _probe = ("idx", 2)
+
     idx: torch.Tensor       # (N, K) int64 neighbour ids, padded with N
     code: torch.Tensor      # (N, K) int64 special-bond code 0..3
     x_ref: torch.Tensor     # (N, 3) positions at build time
@@ -49,7 +62,7 @@ class NeighborList:
 
     @property
     def capacity(self) -> int:
-        return self.idx.shape[1]
+        return self.idx.shape[-1]
 
 
 def make_neighbor_params(box, cutoff: float, *, n_atoms: int,
@@ -107,27 +120,36 @@ def _special_codes(idx, excl_idx, excl_code):
     return code
 
 
+def take_rows(a, j):
+    """a (…, N) at ids j (…, N, M): one gather, (…, N, M) (the batched
+    form of a[j])."""
+    return torch.gather(a, -1, j.flatten(-2)).view(j.shape)
+
+
 def _finalize(x, box, cand, params: NeighborParams, excl_idx, excl_code,
               extra_overflow) -> NeighborList:
-    """Candidate ids (N, C) → the K nearest inside rc + skin, padded with
-    N. Distances are built one coordinate at a time on (N, C) arrays."""
-    n = x.shape[0]
+    """Candidate ids (R, N, M) → the K nearest inside rc + skin, padded
+    with N. Distances are built one coordinate at a time on (R, N, M)
+    arrays."""
+    n = x.shape[1]
     rc2 = params.cutoff * params.cutoff
     cc = torch.clamp(cand, max=n - 1)
     r2 = None
     for d in range(3):
-        xd = x[:, d]
-        dxd = min_image(xd[:, None] - xd[cc], box[d])
+        xd = x[..., d]
+        dxd = min_image(xd[..., None] - take_rows(xd, cc),
+                        box[:, d, None, None])
         r2 = dxd * dxd if r2 is None else r2 + dxd * dxd
     del cc
     self_ids = torch.arange(n, device=x.device)[:, None]
     valid = (cand < n) & (cand != self_ids) & (r2 < rc2)
     r2k = torch.where(valid, r2, torch.inf)
     del r2
-    neg, sel = torch.topk(-r2k, params.capacity, dim=1)
-    idx = torch.gather(cand, 1, sel)
+    neg, sel = torch.topk(-r2k, params.capacity, dim=-1)
+    idx = torch.gather(cand, -1, sel)
     idx = torch.where(torch.isfinite(neg), idx, n)
-    overflow = torch.any(valid.sum(dim=1) > params.capacity) | extra_overflow
+    overflow = torch.any(valid.sum(dim=-1) > params.capacity,
+                         dim=-1) | extra_overflow
     code = _special_codes(idx, excl_idx, excl_code)
     return NeighborList(idx=idx, code=code, x_ref=x, overflow=overflow)
 
@@ -140,64 +162,84 @@ def stencil_offsets(params: NeighborParams, device) -> torch.Tensor:
 
 def build_neighbor_list(x, box, params: NeighborParams, excl_idx,
                         excl_code, offsets=None) -> NeighborList:
-    """The padded neighbour list of positions ``x`` (excl_idx / excl_code:
-    (N, KE) int64 tensors on x's device). ``offsets`` is
-    stencil_offsets(params, x.device); without it the build copies the
-    stencil to the device, which waits for the device."""
-    n = x.shape[0]
+    """The padded neighbour list of positions ``x`` (N, 3) in ``box``
+    (3,), or the lists of a batch, x (R, N, 3) and box (R, 3), in one pass
+    (excl_idx / excl_code: (N, KE) int64 tensors on x's device, shared by
+    the replicas). ``offsets`` is stencil_offsets(params, x.device);
+    without it the build copies the stencil to the device, which waits
+    for the device."""
+    if x.ndim == 2:
+        return replica_of(build_neighbor_list(
+            x[None], box[None], params, excl_idx, excl_code, offsets))
+    R, n = x.shape[:2]
     dev = x.device
     if not params.use_cells:
-        cand = torch.arange(n, device=dev)[None, :].expand(n, n)
+        cand = torch.arange(n, device=dev).expand(R, n, n)
         return _finalize(x, box, cand, params, excl_idx, excl_code,
-                         torch.zeros((), dtype=torch.bool, device=dev))
+                         torch.zeros((R,), dtype=torch.bool, device=dev))
 
     gx, gy, gz = params.grid
+    G = gx * gy * gz
     cap = params.cell_capacity
     if offsets is None:
         offsets = stencil_offsets(params, dev)
-    # per-dimension Python scalars, not a grid tensor: a host copy would
-    # wait for the device
-    xw = wrap(x, box)
-    ci = [torch.clamp(torch.floor(xw[:, d] / (box[d] / g)).long(), 0, g - 1)
-          for d, g in enumerate(params.grid)]
-    cid = (ci[0] * gy + ci[1]) * gz + ci[2]                         # (N,)
+    # per-replica box lengths on the device, not a grid tensor: a host
+    # copy would wait for the device
+    xw = wrap(x, box[:, None, :])
+    ci = [torch.clamp(torch.floor(xw[..., d] / (box[:, d, None] / g)).long(),
+                      0, g - 1)
+          for d, g in enumerate(params.grid)]                       # (R, N)
+    cid = (ci[0] * gy + ci[1]) * gz + ci[2]
+    # replica r's cells are keys r·G … r·G + G − 1: one sort keeps the
+    # replicas apart, each in its own build's order
+    rep = G * torch.arange(R, device=dev)[:, None]
+    key = (cid + rep).reshape(-1)                                  # (R·N,)
 
-    # bin: stable sort by cell, rank within the cell, scatter into a
-    # fixed-capacity table
-    order = torch.argsort(cid, stable=True)
-    cid_sorted = cid[order]
-    first_of_cell = torch.searchsorted(cid_sorted, cid_sorted, side="left")
-    rank = torch.arange(n, device=dev) - first_of_cell
-    cell_overflow = torch.any(rank >= cap)
+    # bin: stable sort by key, rank within the cell, scatter into a
+    # fixed-capacity table of local atom ids
+    order = torch.argsort(key, stable=True)
+    key_sorted = key[order]
+    first_of_cell = torch.searchsorted(key_sorted, key_sorted, side="left")
+    rank = torch.arange(R * n, device=dev) - first_of_cell
+    # the sorted keys of replica r fill positions r·N … r·N + N − 1
+    cell_overflow = torch.any((rank >= cap).reshape(R, n), dim=1)
     slot = torch.clamp(rank, max=cap - 1)
-    table = torch.full((gx * gy * gz * cap,), n, dtype=torch.int64,
-                       device=dev)
-    table[cid_sorted * cap + slot] = order
-    table = table.reshape(gx * gy * gz, cap)
+    table = torch.full((R * G * cap,), n, dtype=torch.int64, device=dev)
+    table[key_sorted * cap + slot] = torch.remainder(order, n)
+    table = table.reshape(R * G, cap)
 
     # gather the stencil cells of each atom
-    nbr = [torch.remainder(ci[d][:, None] + offsets[None, :, d], g)
-           for d, g in enumerate(params.grid)]                      # (N, S)
-    nbr_cid = (nbr[0] * gy + nbr[1]) * gz + nbr[2]
-    cand = table[nbr_cid].reshape(n, -1)                           # (N, S·C)
+    nbr = [torch.remainder(ci[d][..., None] + offsets[:, d], g)
+           for d, g in enumerate(params.grid)]                  # (R, N, S)
+    nbr_cid = (nbr[0] * gy + nbr[1]) * gz + nbr[2] + rep[..., None]
+    cand = table[nbr_cid].reshape(R, n, -1)                   # (R, N, S·C)
     return _finalize(x, box, cand, params, excl_idx, excl_code,
                      cell_overflow)
 
 
 def max_displacement2(nbr: NeighborList, x, box):
-    """() the largest squared displacement of any atom since the build."""
-    dx = min_image(x - nbr.x_ref, box)
-    return torch.max(torch.sum(dx * dx, dim=-1))
+    """The largest squared displacement of any atom since the build: ()
+    for one list, (R,) for a batch."""
+    dx = min_image(x - nbr.x_ref, box[..., None, :])
+    return torch.amax(torch.sum(dx * dx, dim=-1), dim=-1)
 
 
 def needs_rebuild(nbr: NeighborList, x, box, params: NeighborParams):
-    """() bool: some atom moved more than skin/2 since the build."""
+    """Some atom moved more than skin/2 since the build: a () bool, or
+    (R,) for a batch."""
     return max_displacement2(nbr, x, box) > (0.5 * params.skin) ** 2
 
 
 def select(pred, a: NeighborList, b: NeighborList) -> NeighborList:
     """Field by field a where the device bool ``pred`` holds, else b: the
-    sync-free form of the JAX package's lax.cond between two lists."""
+    sync-free form of the JAX package's lax.cond between two lists. For a
+    batch ``pred`` is (R,) and each replica keeps its own list unless its
+    own trigger fired (``jax.vmap`` of the lax.cond): a list rebuilt for
+    another replica's sake may order the same neighbours otherwise."""
+    def pick(ta, tb):
+        m = pred.reshape(pred.shape + (1,) * (ta.ndim - pred.ndim))
+        return torch.where(m, ta, tb)
+
     return NeighborList(**{
-        f.name: torch.where(pred, getattr(a, f.name), getattr(b, f.name))
+        f.name: pick(getattr(a, f.name), getattr(b, f.name))
         for f in dataclasses.fields(NeighborList)})

@@ -104,9 +104,10 @@ def make_ewald_params(box, alpha: float, *, accuracy: float = 1e-4,
 
 def ewald_recip(x, q, ep: EwaldParams):
     """Reciprocal + self + background energy, forces, φ = ∂U/∂q and the
-    per-atom tally: (E, F (N, 3), φ (N,), eatom (N,))."""
-    e, f, phi, eatom = ewald_recip_xd(tuple(x[:, d] for d in range(3)), q,
-                                      ep)
+    per-atom tally: (E, F (N, 3), φ (N,), eatom (N,)); a batch, x (R, N,
+    3) and q (R, N), gives E (R,) and the rest with a leading R."""
+    e, f, phi, eatom = ewald_recip_xd(tuple(x[..., d] for d in range(3)),
+                                      q, ep)
     return e, torch.stack(f, dim=-1), phi, eatom
 
 
@@ -178,8 +179,8 @@ def ewald_recip_xd(xd, q, ep: EwaldParams):
 
 
 def make_kspace_fn(ep: EwaldParams):
-    """Engine hook (x, q, box) → (E, F, φ, eatom); the box is the one the
-    tables were built for."""
+    """Engine hook (x, q, box) → (E, F, φ, eatom), one replica or a batch
+    (ewald_recip); the box is the one the tables were built for."""
     def fn(x, q, box):
         return ewald_recip(x, q, ep)
     return fn

@@ -4,12 +4,12 @@ constant_ph_tpu/parallel/replica.py).
 Replicas are stacked states: every tensor field of a TiledState or
 SystemState (and of a NeighborList) gains a leading replica axis R
 (``stack_replicas``). The swap move, the health checks, the rollback and
-the metadynamics hill merge work on that stack. On the tiled engine the
-stack is the engine's batch: one ``make_run`` call advances every replica
-with one sequence of launches (the JAX package's ``jax.vmap``), each
-replica drawing its Langevin noise from a ``torch.Generator`` of its own
-that the runner holds. The reference engine's runner still loops its
-``make_run`` over the replicas, each with its own neighbour list.
+the metadynamics hill merge work on that stack. On both engines the stack
+is the engine's batch: one ``make_run`` call a block advances every
+replica with one sequence of launches (the JAX package's ``jax.vmap``),
+each replica drawing its Langevin noise from a ``torch.Generator`` of its
+own that the runner holds. On the reference engine each replica keeps its
+own neighbour list, all R built in one pass where rebuilt.
 
 Swap move (even/odd alternating neighbour pairs, Metropolis): replicas
 keep their configurations and exchange pH values. The Hamiltonian depends
@@ -37,8 +37,8 @@ def _tensor_fields(state):
 
 def stack_replicas(states: list):
     """Stack per-replica states (TiledState, SystemState or NeighborList)
-    into one batch. Fields that are not tensors (the host step counter) must agree
-    across replicas and stay as they are."""
+    into one batch. Fields that are not tensors (the host step counter)
+    must agree across replicas and stay as they are."""
     first = states[0]
     out = {}
     for f in dataclasses.fields(first):
@@ -104,24 +104,20 @@ def swap_phs(states, generator, bias, parity, u=None):
 def make_rex_runner(engine, md_steps_per_swap: int):
     """Replica-exchange block on the reference engine:
     block(states, nbrs, generator, parity, u=None) → (states, nbrs,
-    generator, accept, obs_last). ``states`` and ``nbrs`` are stacked
-    (stack_replicas): every replica keeps its own neighbour list. Replica
-    r's noise comes from ``block.generators[r]``, made at the first call
-    from (engine seed, r); ``generator`` draws the swap uniforms unless
-    ``u`` (R,) gives them. Nothing is read back to the host."""
+    generator, accept, obs_last). ``states`` and ``nbrs`` are a batch
+    (stack_replicas; every replica keeps its own neighbour list) and run
+    as one: one ``make_run`` call a block. Replica r's noise comes from
+    ``block.generators[r]``, made at the first call from (engine seed, r);
+    ``generator`` draws the swap uniforms unless ``u`` (R,) gives them.
+    Nothing is read back to the host."""
     run = engine.make_run(md_steps_per_swap)
 
     def block(states, nbrs, generator, parity, u=None):
-        reps = unstack_replicas(states)
         if block.generators is None:
             block.generators = replica_generators(
-                [_fold_in(engine.cfg.seed, r) for r in range(len(reps))],
-                states.pH.device)
-        outs = [run(s, nb, g) for s, nb, g in
-                zip(reps, unstack_replicas(nbrs), block.generators)]
-        states = stack_replicas([o[0] for o in outs])
-        nbrs = stack_replicas([o[1] for o in outs])
-        obs = stack_replicas([o[2] for o in outs])          # (R, T, …)
+                [_fold_in(engine.cfg.seed, r)
+                 for r in range(states.pH.shape[0])], states.pH.device)
+        states, nbrs, obs = run(states, nbrs, block.generators)  # (R, T, …)
         states, accepted = swap_phs(states, generator, engine.bias, parity,
                                     u=u)
         last_obs = Observables(**{

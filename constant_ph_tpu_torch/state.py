@@ -12,11 +12,14 @@ import dataclasses
 import torch
 
 from constant_ph_tpu_torch import resolve_device
+from constant_ph_tpu_torch.batching import PerReplica
 
 
 @dataclasses.dataclass
-class SystemState:
-    """Dynamic state of the simulation."""
+class SystemState(PerReplica):
+    """Dynamic state of the simulation (one replica's shapes)."""
+
+    _probe = ("x", 2)
 
     x: torch.Tensor          # (N, 3) positions, Å
     v: torch.Tensor          # (N, 3) velocities, Å/fs

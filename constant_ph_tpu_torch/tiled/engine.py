@@ -46,13 +46,18 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import lambda_dyn, metad as metad_mod, units
-from constant_ph_tpu_torch.batching import PerReplica, bview, state_batched
+from constant_ph_tpu_torch.batching import (
+    PerReplica,
+    bview,
+    generators_for,
+    state_batched,
+)
 from constant_ph_tpu_torch.engine import (
     EngineConfig,
     Observables,
     full_float32_matmuls,
 )
-from constant_ph_tpu_torch.integrators import nhc_halfstep
+from constant_ph_tpu_torch.integrators import nhc_halfstep, replica_randn
 from constant_ph_tpu_torch.lambda_dyn import BiasParams
 from constant_ph_tpu_torch.ops.bonded import bonded_forces
 from constant_ph_tpu_torch.ops.ewald import ewald_recip_xd
@@ -437,30 +442,6 @@ class TiledEngine:
             frc, fw=frc.fw * torch.clamp(cap / wnorm, max=1.0),
             fs=frc.fs * torch.clamp(cap / snorm, max=1.0))
 
-    def _randn(self, like, generators):
-        """Standard normal noise shaped like the batch ``like``: replica
-        r's slice drawn from generators[r], the numbers a run of that
-        replica alone draws (one small launch a replica)."""
-        noise = torch.empty_like(like)
-        for r, gen in enumerate(generators):
-            noise[r].normal_(generator=gen)
-        return noise
-
-    def _generators(self, st: TiledState, generators):
-        """One generator a replica of a batch: ``generators``, or the
-        engine's own for a batch of one."""
-        R = st.wx.shape[0]
-        if generators is None:
-            if R != 1:
-                raise ValueError(f"a batch of {R} replicas needs one "
-                                 "torch.Generator a replica")
-            return [self.generator]
-        generators = list(generators)
-        if len(generators) != R:
-            raise ValueError(f"{len(generators)} generators for a batch of "
-                             f"{R} replicas")
-        return generators
-
     def _project_solute(self, sx, sv, box):
         sc = self.ts.solute_constraints
         return sc.velocities(sx, sv, box) if sc is not None else sv
@@ -471,7 +452,7 @@ class TiledEngine:
         state; returns the new state and the forces at its positions.
         Langevin noise comes from ``generators`` (one a replica; for one
         state a Generator, default: the engine's)."""
-        gens = self._generators(st, generators)
+        gens = generators_for(st.wx.shape[0], generators, self.generator)
         cfg = self.cfg
         ts = self.ts
         dt = cfg.dt
@@ -539,10 +520,10 @@ class TiledEngine:
             c1 = math.exp(-cfg.gamma * dt)
             sig_w = torch.sqrt((1.0 - c1 * c1) * kT
                                / (self.wmass * units.MVV2E))
-            wv = c1 * wv + sig_w * vm_atoms * self._randn(wv, gens)
+            wv = c1 * wv + sig_w * vm_atoms * replica_randn(wv, gens)
             sig_s = torch.sqrt((1.0 - c1 * c1) * kT
                                / (ts.solute.mass * units.MVV2E))[:, None]
-            sv = c1 * sv + sig_s * ts.solute.smask[:, None] * self._randn(
+            sv = c1 * sv + sig_s * ts.solute.smask[:, None] * replica_randn(
                 sv, gens)
             ext_work = ext_work + ke_proj(wv, sv) - ke_o0
         if move_lam and cfg.lambda_thermostat == "langevin":
@@ -550,7 +531,7 @@ class TiledEngine:
             c1l = math.exp(-cfg.lambda_gamma * dt)
             sig_l = torch.sqrt((1.0 - c1l * c1l) * kT
                                / (ts.spec.m_lambda * units.MVV2E))
-            v_lam = c1l * v_lam + sig_l * self._randn(v_lam, gens)
+            v_lam = c1l * v_lam + sig_l * replica_randn(v_lam, gens)
             ext_work = (ext_work + lambda_dyn.lambda_kinetic(v_lam, ts.spec)
                         - kel_o0)
 
@@ -731,7 +712,7 @@ class TiledEngine:
 
         @state_batched
         def run(st: TiledState, generators=None):
-            gens = self._generators(st, generators)
+            gens = generators_for(st.wx.shape[0], generators, self.generator)
             R = st.wx.shape[0]
             dev = st.wx.device
             ov_cap = torch.zeros((R,), dtype=torch.bool, device=dev)

@@ -382,6 +382,24 @@ def _roll_shift(box, grid, off, dtype):
 # production tiles) the block is one piece
 _BLOCK_WHOLE = 32 << 20
 _BLOCK_PART = 8 << 20
+# on the CPU, a block taken in runs of cell rows is also taken in runs of
+# i slots whose temporaries stay near _SLOT_PART, so that they fit in
+# cache (~3x faster on the hard tiles at W 208). The full-tally sums all
+# run along j, so its outputs are bitwise those of the whole rows; the
+# hot-path block's j-side sums and energy totals add the runs' partial
+# sums, float32 sums in another order
+_SLOT_PART = 256 << 10
+
+
+def _slot_chunks(chunks, R, gz, A, itemsize, dev, unit=1):
+    """Slices over the A i slots (whole runs of ``unit`` slots) of one run
+    of cell rows: the whole axis, or on the CPU where the block is taken in
+    runs of rows, runs of about _SLOT_PART bytes a temporary."""
+    if dev.type != "cpu" or len(chunks) == 1:
+        return [slice(0, A)]
+    rows = chunks[0].stop - chunks[0].start
+    step = unit * max(1, _SLOT_PART // (unit * R * rows * gz * A * itemsize))
+    return [slice(i, min(i + step, A)) for i in range(0, A, step)]
 
 
 def _row_chunks(grid, A, itemsize, R=1):
@@ -442,6 +460,8 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
     e_lj = torch.zeros((R,), dtype=dtype, device=dev)
     wx4 = wxg.reshape(R, 3, rows_n, gz, A)
     chunks = _row_chunks(p.grid, A, wxg.element_size(), R)
+    # runs of whole molecules, so that 0::3 picks each run's O atoms
+    slots = _slot_chunks(chunks, R, gz, A, wxg.element_size(), dev, unit=3)
 
     def total(t):                                    # per-replica sum
         return torch.sum(t.flatten(1), dim=-1)
@@ -460,31 +480,37 @@ def water_water_fast_plain(wxg, wm: WaterModel, p: TileParams, box, *,
                     torch.empty_like(wx4[..., 0::3]))
         for rows in chunks:
             xi_r, xj_r = wx4[:, :, rows], xj4[:, :, rows]
-            dx = xi_r[..., :, None] - xj_r[..., None, :]     # (R,3,...,A,A)
-            r2 = torch.clamp(dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1]
-                             + dx[:, 2] * dx[:, 2], min=R2_MIN)
-            in_rc = (r2 < rc2).to(dtype)
-            u_r, w_r, _ = _screened_coulomb(r2, style, rc, consts)
-            e_coul = e_coul + total(kqq * (u_r * in_rc))
-            hd = (kqq * (w_r * in_rc))[:, None] * dx
-            fi[:, :, rows] = torch.sum(hd, dim=-1)
-            fj[:, :, rows] = -torch.sum(hd, dim=-2)
+            fj_runs, fjO_runs = [], []
+            for i in slots:
+                iO = slice(i.start // 3, i.stop // 3)
+                dx = xi_r[..., i, None] - xj_r[..., None, :]  # (R,3,...,a,A)
+                r2 = torch.clamp(dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1]
+                                 + dx[:, 2] * dx[:, 2], min=R2_MIN)
+                in_rc = (r2 < rc2).to(dtype)
+                u_r, w_r, _ = _screened_coulomb(r2, style, rc, consts)
+                e_coul = e_coul + total(kqq[i] * (u_r * in_rc))
+                hd = (kqq[i] * (w_r * in_rc))[:, None] * dx
+                fi[:, :, rows, ..., i] = torch.sum(hd, dim=-1)
+                fj_runs.append(torch.sum(hd, dim=-2))
 
-            dxo = dx[..., 0::3, 0::3]                        # O-O block
-            r2o = torch.clamp(dxo[:, 0] * dxo[:, 0] + dxo[:, 1] * dxo[:, 1]
-                              + dxo[:, 2] * dxo[:, 2], min=R2_MIN)
-            in_rco = (r2o < rc2).to(dtype)
-            if ljm is not None:
-                in_rco = ljm * in_rco
-            inv_r2 = 1.0 / r2o
-            inv_r6 = inv_r2 * inv_r2 * inv_r2
-            e_lj = e_lj + total(
-                ((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
-                * in_rco)
-            fpd = ((c12x12 * inv_r6 - c6x6) * inv_r6 * inv_r2
-                   * in_rco)[:, None] * dxo
-            fiO[:, :, rows] = torch.sum(fpd, dim=-1)
-            fjO[:, :, rows] = -torch.sum(fpd, dim=-2)
+                dxo = dx[..., 0::3, 0::3]                    # O-O block
+                r2o = torch.clamp(dxo[:, 0] * dxo[:, 0]
+                                  + dxo[:, 1] * dxo[:, 1]
+                                  + dxo[:, 2] * dxo[:, 2], min=R2_MIN)
+                in_rco = (r2o < rc2).to(dtype)
+                if ljm is not None:
+                    in_rco = ljm[iO] * in_rco
+                inv_r2 = 1.0 / r2o
+                inv_r6 = inv_r2 * inv_r2 * inv_r2
+                e_lj = e_lj + total(
+                    ((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6
+                     - wm.eshift_OO) * in_rco)
+                fpd = ((c12x12 * inv_r6 - c6x6) * inv_r6 * inv_r2
+                       * in_rco)[:, None] * dxo
+                fiO[:, :, rows, ..., iO] = torch.sum(fpd, dim=-1)
+                fjO_runs.append(torch.sum(fpd, dim=-2))
+            fj[:, :, rows] = -sum(fj_runs[1:], fj_runs[0])
+            fjO[:, :, rows] = -sum(fjO_runs[1:], fjO_runs[0])
 
         def fold(fi_, fj_):
             fi_, fj_ = (t.reshape(t.shape[:2] + p.grid + t.shape[-1:])
@@ -600,13 +626,16 @@ def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
     out = torch.zeros_like(wt)
     out4 = out.view(R, gx * gy, gz, 8, A)
     chunks = _row_chunks(p.grid, A, wt.element_size(), R)
+    slots = _slot_chunks(chunks, R, gz, A, wt.element_size(), dev)
     for k, off in enumerate(_STENCIL27):
         tile4 = torch.roll(wt, tuple(-o for o in off),
                            dims=(1, 2, 3)).reshape(R, gx * gy, gz, 8, A)
         for rows in chunks:
-            out4[:, rows, ..., :6, :] += _tally_block(
-                wt4[:, rows], tile4[:, rows], k == 13, bx, inv_l, rc, rc2,
-                e_sh, f_sh, alpha, style, wm, not_same_mol)
+            for i in slots:
+                out4[:, rows, ..., :6, i] += _tally_block(
+                    wt4[:, rows, ..., i], tile4[:, rows], k == 13, bx,
+                    inv_l, rc, rc2, e_sh, f_sh, alpha, style, wm,
+                    not_same_mol[i])
     return out
 
 

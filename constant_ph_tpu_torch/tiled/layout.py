@@ -56,6 +56,8 @@ class TiledState(PerReplica):
     (parallel.replica.stack_replicas) gives every tensor field a leading
     R; ``step_host`` stays one host int shared by the batch."""
 
+    _probe = ("wx", 3)
+
     wx: torch.Tensor       # (3, G, 3W) water atom coords per dim
     wv: torch.Tensor       # (3, G, 3W)
     wvalid: torch.Tensor   # (G, W) 1.0 for real molecules
