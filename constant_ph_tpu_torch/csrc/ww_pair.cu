@@ -12,7 +12,18 @@
 // (O, H1, H2 of molecule k in slots 3k, 3k+1, 3k+2; empty slots parked far
 // outside the box, all three on one point), box (R, 3) on the device -> f
 // (R, 3, G, A) forces, e_out (R, 2) = (e_lj, e_coul), n_out (R,) = the
-// atom pairs evaluated. Coulomb on all atom pairs with the degree-10
+// atom pairs evaluated.
+//
+// Slab entry (the x-slab decomposition, parallel/spatial.py): wx holds a
+// rank's gxo owned x-layers of the global grid plus one ghost x-layer on
+// each side (gxo + 2 layers, raw coordinates as the neighbouring ranks
+// hold them), the slab's first global x index and the global gx; f and the
+// energies cover the owned cells only. The kernel reads a stencil
+// neighbour from the local array (no x wrap) and takes its image shift
+// from the neighbour's global x index (y and z wrap as on the whole grid).
+// The whole grid is the case xo = 0: no ghosts, the neighbour wrapped in
+// the array, first index 0. Both give an owned cell the same pairs with
+// the same bits, so a slab's forces are the whole grid's rows. Coulomb on all atom pairs with the degree-10
 // Chebyshev screening fits g1, g2 in t = min(2r/rc - 1, 1) (DSF or erfc
 // style); 12-6 shifted LJ on O-O pairs only; r^2 clamped at R2_MIN; pairs
 // beyond rc masked. Parked slots drop out through the cutoff, so there is
@@ -28,11 +39,20 @@
 // and tests candidates, so it stays well above that bound: staging,
 // candidate tests and pair arithmetic each take a share of its time.
 //
+// Displacements. Every atom pair's dx = (x_i - x_j) - s, s the image shift
+// of j's stencil segment: the difference of the two stored coordinates
+// first, the shift last. In IEEE float32 fl(a - b) = -fl(b - a), and the
+// pair seen from j has the opposite shift, so its dx is exactly -dx and
+// its r^2 the same bits: both shares of a pair fall on the same side of
+// rc and the forces are exactly antisymmetric (the JAX block and the plain
+// version apply +-f once a pair). The staged tiles hold the unshifted
+// coordinates.
+//
 // Molecule-pair cull (exact). Work is done per water molecule. Each
 // molecule's radius rho = max(|H1 - O|, |H2 - O|) is computed on the fly
 // (~1 A for water, 0 for a parked molecule). A molecule pair (i, j) is
 // skipped when |O_i - O_j| >= rc + rho_i + rho_j + CULL_MARGIN, with j's
-// image shift added. By the triangle inequality every atom pair of a
+// image shift subtracted after the difference. By the triangle inequality every atom pair of a
 // skipped molecule pair is then >= rc + CULL_MARGIN apart, and the pair
 // term is multiplied by in_rc = 0 for it: skipping changes nothing. The
 // argument holds for any geometry (FIRE from a raw lattice, stretched
@@ -40,7 +60,8 @@
 // is exact to 2^-24 of itself, so both r^2 in the cull and r^2 of an atom
 // pair are within a few ulp of their exact values, relative to the
 // distance and not to the coordinates; CULL_MARGIN = 0.01 A is >100x
-// that at rc. Pairs that survive the cull but lie beyond rc are masked by
+// that at rc; the shift subtracted last adds one rounding of the same
+// size. Pairs that survive the cull but lie beyond rc are masked by
 // in_rc as before. The molecule pair j = i in the own cell is skipped: its
 // 9 pairs are same-molecule pairs, which the function excludes.
 // The cull runs in two steps. A block first lists the stencil molecules
@@ -70,9 +91,9 @@
 // (gridDim.z). It stages the whole stencil of its cell once: 27
 // tiles x 3 dims x A floats (54 KB at A = 168, 74 KB at A = 228), copied
 // with cp.async in 16-byte pieces (rows are 16-byte aligned: W is a
-// multiple of 4, so A is a multiple of 12). One pass then adds the image
-// shifts in place (so dx = x_i - (x_j + shift), as the plain version
-// computes it) and stores the 27 W radii. Staging coordinates of all
+// multiple of 4, so A is a multiple of 12), unshifted. One pass then
+// stores the 27 W radii; the segments' image shifts stay in a 27 x 3
+// table. Staging coordinates of all
 // three atoms, rather than O and rho alone with the survivors' H read
 // from L2, keeps the candidate and pair loops on shared memory. The
 // staging is paid once per block, so a block takes 16 molecules rather
@@ -141,7 +162,10 @@ struct WWParams {
   float c6, c12, esh, c6x6, c12x12;
   float rc, rc2, two_over_rc, e_sh, f_sh;
   int dsf;
-  int gx, gy, gz, W;
+  int gxa, gy, gz, W;              // x-layers of the tile array; y, z; W
+  int xo;                          // first owned layer of the array (0, 1)
+  int gxo;                         // owned x-layers (gxa - 2 xo)
+  int x_first, gx_glob;            // global x of owned layer 0; global gx
   int spp;                         // stencil segments staged a pass
 };
 
@@ -166,6 +190,11 @@ __device__ __forceinline__ int wrap_cell(int c, int g, float L, float* sh) {
   return c;
 }
 
+// the image shift of a neighbour at global index c of a periodic axis of g
+__device__ __forceinline__ float image_shift(int c, int g, float L) {
+  return c < 0 ? -L : (c >= g ? L : 0.f);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -184,12 +213,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Stages segments [s_first, s_first + n_seg) of the stencil into x ([n_seg]
-// [3][A], 16 bytes per cp.async; row = 3 * segment + dim), adds their image
-// shifts in place (so dx = x_i - (x_j + shift), as the plain version
-// computes it) and stores each molecule's radius in rho ([n_seg][W]).
+// [3][A], 16 bytes per cp.async; row = 3 * segment + dim), unshifted, and
+// stores each molecule's radius in rho ([n_seg][W]). G: cells of the tile
+// array.
 __device__ __forceinline__ void stage(
     float* x, float* rho, const float* __restrict__ wx, int s_first,
-    int n_seg, const int* seg_cell, const float* seg_shift, int W, int G) {
+    int n_seg, const int* seg_cell, int W, int G) {
   const int A = 3 * W;
   const int A4 = A / 4;
   for (int k = threadIdx.x; k < n_seg * 3 * A4; k += NT) {
@@ -204,17 +233,13 @@ __device__ __forceinline__ void stage(
   __syncthreads();
   for (int c = threadIdx.x; c < n_seg * W; c += NT) {
     const int s = c / W;
-    float* b = x + s * 3 * A + 3 * (c - s * W);
+    const float* b = x + s * 3 * A + 3 * (c - s * W);
     float h1 = 0.f, h2 = 0.f;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const float sh = seg_shift[3 * (s_first + s) + d];
-      const float o = b[d * A] + sh;
-      const float x1 = b[d * A + 1] + sh;
-      const float x2 = b[d * A + 2] + sh;
-      b[d * A] = o;
-      b[d * A + 1] = x1;
-      b[d * A + 2] = x2;
+      const float o = b[d * A];
+      const float x1 = b[d * A + 1];
+      const float x2 = b[d * A + 2];
       h1 += (x1 - o) * (x1 - o);
       h2 += (x2 - o) * (x2 - o);
     }
@@ -240,7 +265,8 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
 
   const int W = p.W;
   const int A = 3 * W;
-  const int G = p.gx * p.gy * p.gz;
+  const int G = p.gxa * p.gy * p.gz;         // cells of the tile array
+  const int Go = p.gxo * p.gy * p.gz;        // owned cells (f, the grid)
   const int spp = MULTI ? p.spp : NSEG;      // segments a pass
   const int own_tiles = MULTI ? 1 : 0;
   float* sx = smem;                          // [spp][3][A], shifted
@@ -251,10 +277,10 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
   // W <= 252)
   short* cand = reinterpret_cast<short*>(own_rho + own_tiles * W);
   short* ring = cand + spp * W;              // [WARPS][RING]
-  const int cell = blockIdx.y;
+  const int cell = blockIdx.y;               // owned cell
   // this block's replica
   wx += (size_t)blockIdx.z * 3 * G * A;
-  f += (size_t)blockIdx.z * 3 * G * A;
+  f += (size_t)blockIdx.z * 3 * Go * A;
   box += 3 * blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -264,9 +290,14 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
   if (tid < NSEG) {
     const int cz = cell % p.gz;
     const int cy = (cell / p.gz) % p.gy;
-    const int cx = cell / (p.gz * p.gy);
-    float shx, shy, shz;
-    const int nx = wrap_cell(cx + tid / 9 - 1, p.gx, box[0], &shx);
+    const int cx = cell / (p.gz * p.gy);     // owned layer
+    const int ox = tid / 9 - 1;
+    // the neighbour's layer in the array (a slab has its ghosts there),
+    // its shift from its global x index
+    const float shx = image_shift(p.x_first + cx + ox, p.gx_glob, box[0]);
+    float shy, shz, unused;
+    const int nx = p.xo ? cx + 1 + ox
+                        : wrap_cell(cx + ox, p.gxa, box[0], &unused);
     const int ny = wrap_cell(cy + (tid / 3) % 3 - 1, p.gy, box[1], &shy);
     const int nz = wrap_cell(cz + tid % 3 - 1, p.gz, box[2], &shz);
     seg_cell[tid] = (nx * p.gy + ny) * p.gz + nz;
@@ -279,9 +310,9 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
   // one pass: the whole stencil now, the own tile at segment SELF_SEG;
   // passes: the own tile alone now, the stencil pass by pass below
   if (MULTI)
-    stage(own_x, own_rho, wx, SELF_SEG, 1, seg_cell, seg_shift, W, G);
+    stage(own_x, own_rho, wx, SELF_SEG, 1, seg_cell, W, G);
   else
-    stage(sx, rho, wx, 0, NSEG, seg_cell, seg_shift, W, G);
+    stage(sx, rho, wx, 0, NSEG, seg_cell, W, G);
   const float* own = MULTI ? own_x : sx + SELF_SEG * 3 * A;
   const float* rho_own = MULTI ? own_rho : rho + SELF_SEG * W;
 
@@ -335,7 +366,7 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
     if (MULTI) {
       __syncthreads();                       // every warp is done with the
                                              // last pass's segments
-      stage(sx, rho, wx, s0, ns, seg_cell, seg_shift, W, G);
+      stage(sx, rho, wx, s0, ns, seg_cell, W, G);
     }
     // candidates: the staged molecules within rc + rho_max + rho_j +
     // CULL_MARGIN of that box, in stencil order. A molecule left out is
@@ -357,7 +388,7 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
           float dd = 0.f;
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
-            const float x = b[d * A];
+            const float x = b[d * A] + seg_shift[3 * (s0 + s) + d];
             const float e = fmaxf(fmaxf(ibox[d] - x, x - ibox[3 + d]), 0.f);
             dd += e * e;
           }
@@ -398,9 +429,9 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
           const int m = code[h] & 255;
           if (!(s == SELF_SEG && m == mi)) {
             const float* b = sx + (s - s0) * 3 * A + 3 * m;
-            const float dx = xi[0][0] - b[0];
-            const float dy = xi[0][1] - b[A];
-            const float dz = xi[0][2] - b[2 * A];
+            const float dx = (xi[0][0] - b[0]) - seg_shift[3 * s];
+            const float dy = (xi[0][1] - b[A]) - seg_shift[3 * s + 1];
+            const float dz = (xi[0][2] - b[2 * A]) - seg_shift[3 * s + 2];
             const float lim = lim_i + rho[(s - s0) * W + m];
             keep[h] = dx * dx + dy * dy + dz * dz < lim * lim;
           }
@@ -429,14 +460,17 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
         kept += take;
         if (e < 0) continue;
         const float* bj = sx + ((e >> 8) - s0) * 3 * A + 3 * (e & 255);
+        const float* sj = seg_shift + 3 * (e >> 8);
+        const float shx = sj[0], shy = sj[1], shz = sj[2];
 #pragma unroll
         for (int b = 0; b < 3; ++b) {
           const float xj = bj[b], yj = bj[A + b], zj = bj[2 * A + b];
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
-            const float dx = xi[a][0] - xj;
-            const float dy = xi[a][1] - yj;
-            const float dz = xi[a][2] - zj;
+            // the difference first, the shift last: exactly antisymmetric
+            const float dx = (xi[a][0] - xj) - shx;
+            const float dy = (xi[a][1] - yj) - shy;
+            const float dz = (xi[a][2] - zj) - shz;
             const float r2 = fmaxf(dx * dx + dy * dy + dz * dz, R2_MIN);
             const float in_rc = r2 < p.rc2 ? 1.f : 0.f;
             const float inv_r = rsqrtf(r2);
@@ -484,7 +518,7 @@ ww_pair_kernel(const float* __restrict__ wx, const float* __restrict__ box,
       for (int a = 0; a < 3; ++a)
 #pragma unroll
         for (int d = 0; d < 3; ++d)
-          f[(size_t)(d * G + cell) * A + 3 * mi + a] = fi[a][d];
+          f[(size_t)(d * Go + cell) * A + 3 * mi + a] = fi[a][d];
     }
   }
 
@@ -572,7 +606,7 @@ int launch(const float* wx, const float* box, float* f, float* e_part,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz, R);
+  const dim3 grid(blocks_per_cell(p.W), p.gxo * p.gy * p.gz, R);
   ww_pair_kernel<MULTI><<<grid, NT, smem, s>>>(wx, box, f, e_part, n_part,
                                                p);
   err = cudaGetLastError();
@@ -601,12 +635,16 @@ int ww_pair_smem_bytes(int W, int passes) {
 // Launches both kernels on `stream` for R replicas, the stencil staged in
 // `passes` (1: all 27 segments at once); returns the CUDA error (0 = ok).
 // e_part: 2 floats per block, n_part: 1 int per block (scratch, R *
-// ww_pair_blocks each); e_out: (R, 2) (e_lj, e_coul); n_out: (R,) atom
-// pairs evaluated.
+// ww_pair_blocks of the owned cells each); e_out: (R, 2) (e_lj, e_coul);
+// n_out: (R,) atom pairs evaluated. gxa: x-layers of wx; slab = 0: the
+// whole periodic grid (x_first 0, gx_glob = gxa); slab = 1: gxa - 2 owned
+// layers between two ghost layers, the first owned one at global x
+// x_first of gx_glob.
 int ww_pair_forward(const float* wx, const float* box, float* f,
                     float* e_part, int* n_part, float* e_out, int* n_out,
-                    int gx, int gy, int gz, int W, const float* prm,
-                    int dsf, int passes, int R, void* stream) {
+                    int gxa, int gy, int gz, int W, const float* prm,
+                    int dsf, int passes, int R, int slab, int x_first,
+                    int gx_glob, void* stream) {
   WWParams p;
   for (int k = 0; k < NCOEF; ++k) {
     p.c1[k] = prm[P_C1 + k];
@@ -626,7 +664,11 @@ int ww_pair_forward(const float* wx, const float* box, float* f,
   p.e_sh = prm[P_E_SH];
   p.f_sh = prm[P_F_SH];
   p.dsf = dsf;
-  p.gx = gx;
+  p.gxa = gxa;
+  p.xo = slab ? 1 : 0;
+  p.gxo = gxa - 2 * p.xo;
+  p.x_first = x_first;
+  p.gx_glob = gx_glob;
   p.gy = gy;
   p.gz = gz;
   p.W = W;

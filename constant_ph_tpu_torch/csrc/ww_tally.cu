@@ -28,6 +28,15 @@
 //   - the eatom rows carry 0.5 (each pair is tallied on both atoms).
 // Needs grid >= 3 per dim, so the 27 offsets are distinct cells.
 //
+// Slab entry (the x-slab decomposition, parallel/spatial.py): wt holds a
+// rank's gxo owned x-layers of the global grid plus one ghost x-layer on
+// each side (raw coordinates as the neighbouring ranks hold them); out
+// covers the owned cells only. The kernel reads a stencil neighbour from
+// the local array without an x wrap; the per-pair minimum image on the
+// global box gives the ghost's atoms the same dx bits as the whole grid
+// does, so a slab's outputs are the whole grid's rows. The global gx must
+// be >= 3; y and z wrap as on the whole grid.
+//
 // Bound: operations. The tiles are 0.9 MB in and 0.9 MB out at 24,001
 // atoms; the function needs each unordered atom pair inside rc once (~2.3
 // M pairs at those tiles, ~67 FP32 operations each with an expf, a sqrtf
@@ -155,7 +164,9 @@ enum {
 struct TallyParams {
   float c6, c12, esh, c6x6, c12x12;
   float rc, rc2, far, alpha, two_over_sqrt_pi, qqr2e, e_sh, f_sh;
-  int gx, gy, gz, W;
+  int gxa, gy, gz, W;              // x-layers of the tile array; y, z; W
+  int xo;                          // first owned layer of the array (0, 1)
+  int gxo;                         // owned x-layers (gxa - 2 xo)
   int opp;                         // stencil offsets staged a pass
 };
 
@@ -325,14 +336,16 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
 
   const int W = p.W;
   const int A = 3 * W;
-  const int cell = blockIdx.y;
+  const int cell = blockIdx.y;               // owned cell
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int gyz = p.gy * p.gz;
+  // the owned cell in the tile array (a slab has a ghost layer first)
+  const int acell = cell + p.xo * gyz;
   // this block's replica
-  const size_t rep_off = (size_t)blockIdx.z * p.gx * p.gy * p.gz * NROW * A;
-  wt += rep_off;
-  out += rep_off;
+  wt += (size_t)blockIdx.z * p.gxa * gyz * NROW * A;
+  out += (size_t)blockIdx.z * p.gxo * gyz * NROW * A;
   box += 3 * blockIdx.z;
   count += blockIdx.z;
   const int m_first = blockIdx.x * WARPS;    // the block's i molecules
@@ -342,7 +355,7 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
   // a block whose i molecules are all parked writes zeros and stops
   const int ns = 3 * (m_end - m_first);
   const bool live = tid < ns &&
-      wt[((size_t)cell * NROW + 5) * A + 3 * m_first + tid] != 0.f;
+      wt[((size_t)acell * NROW + 5) * A + 3 * m_first + tid] != 0.f;
   if (!__syncthreads_or(live)) {
     for (int k = tid; k < NROW * ns; k += NT) {
       const int r = k / ns;
@@ -362,8 +375,9 @@ ww_tally_kernel(const float* __restrict__ wt, const float* __restrict__ box,
   if (tid < NOFF) {
     const int cz = cell % p.gz;
     const int cy = (cell / p.gz) % p.gy;
-    const int cx = cell / (p.gz * p.gy);
-    const int nx = wrap_cell(cx + tid / 9 - 1, p.gx);
+    const int cx = cell / gyz + p.xo;       // layer in the array
+    const int nx = p.xo ? cx + tid / 9 - 1 : wrap_cell(cx + tid / 9 - 1,
+                                                        p.gxa);
     const int ny = wrap_cell(cy + (tid / 3) % 3 - 1, p.gy);
     const int nz = wrap_cell(cz + tid % 3 - 1, p.gz);
     seg_cell[tid] = (nx * p.gy + ny) * p.gz + nz;
@@ -595,7 +609,7 @@ int launch(const float* wt, const float* box, float* out, int* count,
   }
   err = cudaMemsetAsync(count, 0, sizeof(int) * R, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(blocks_per_cell(p.W), p.gx * p.gy * p.gz, R);
+  const dim3 grid(blocks_per_cell(p.W), p.gxo * p.gy * p.gz, R);
   ww_tally_kernel<DSF, SCREENED, MULTI><<<grid, NT, smem, s>>>(
       wt, box, out, count, p);
   return static_cast<int>(cudaGetLastError());
@@ -624,11 +638,13 @@ int ww_tally_smem_bytes(int W, int passes) {
 
 // Launches the kernel on `stream` for R replicas, the stencil staged in
 // `passes` (1: all 27 offsets at once); returns the CUDA error (0 = ok).
-// count: R ints, each set to its replica's atom pairs evaluated.
+// count: R ints, each set to its replica's atom pairs evaluated. gxa:
+// x-layers of wt; slab = 0: the whole periodic grid; slab = 1: gxa - 2
+// owned layers between two ghost layers (out has the owned ones).
 int ww_tally_forward(const float* wt, const float* box, float* out,
-                     int* count, int gx, int gy, int gz, int W,
+                     int* count, int gxa, int gy, int gz, int W,
                      const float* prm, int dsf, int screened, int passes,
-                     int R, void* stream) {
+                     int R, int slab, void* stream) {
   TallyParams p;
   p.c6 = prm[P_C6];
   p.c12 = prm[P_C12];
@@ -643,7 +659,9 @@ int ww_tally_forward(const float* wt, const float* box, float* out,
   p.qqr2e = prm[P_QQR2E];
   p.e_sh = prm[P_E_SH];
   p.f_sh = prm[P_F_SH];
-  p.gx = gx;
+  p.gxa = gxa;
+  p.xo = slab ? 1 : 0;
+  p.gxo = gxa - 2 * p.xo;
   p.gy = gy;
   p.gz = gz;
   p.W = W;

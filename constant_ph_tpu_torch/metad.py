@@ -18,8 +18,9 @@ The pooled estimators take the switching slope as an argument; callers
 pass the installed ``BiasParams.switch_slope`` (the JAX package's
 estimators hard-set 50.0, its default).
 
-The cross-device merges (``make_mesh_walker_merge``,
-``make_mesh_group_merge``) come with the multi-GPU slice.
+The cross-rank merges (``make_mesh_walker_merge``,
+``make_mesh_group_merge``) fold each rank's walkers with deposit_frozen
+and sum the deltas with one all-reduce (parallel/comm.py).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from constant_ph_tpu_torch import resolve_device, units
+from constant_ph_tpu_torch.parallel import comm
 
 
 def _grid_np(lo: float, hi: float, nbins: int) -> np.ndarray:
@@ -280,13 +282,49 @@ def deposit_frozen(V, dV, lam_seq, p: MetadParams):
     return torch.sum(hg, dim=0), torch.sum(hdg, dim=0)
 
 
-def make_mesh_walker_merge(mesh, axis: str, p: MetadParams):
-    raise NotImplementedError(
-        "the cross-device walker merge comes with the multi-GPU slice "
-        "(ROADMAP Queue 1 item 12, torch.distributed all_reduce)")
+def make_mesh_walker_merge(group, p: MetadParams):
+    """Cross-rank multiple-walkers hill merge (the JAX package's
+    ``make_mesh_walker_merge(mesh, axis, p)``; here ``(group, p)``: the
+    mesh axis becomes a torch.distributed process group, None the default
+    group). Returns merge(V, dV, seq): (V, dV) the shared (S, nbins)
+    tables, the same on every rank, and seq (W, K, S) every walker's λ
+    snapshots, the same on every rank; each rank folds its contiguous
+    W / world walkers with deposit_frozen and the deltas are summed over
+    the ranks. The G = 1 case of make_mesh_group_merge."""
+    grp = make_mesh_group_merge(group, p)
+
+    def merge(V, dV, seq):
+        Vn, dVn = grp(V[None], dV[None], seq[None])
+        return Vn[0], dVn[0]
+
+    return merge
 
 
-def make_mesh_group_merge(mesh, axis: str, p: MetadParams):
-    raise NotImplementedError(
-        "the cross-device group merge comes with the multi-GPU slice "
-        "(ROADMAP Queue 1 item 12, torch.distributed all_reduce)")
+def make_mesh_group_merge(group, p: MetadParams):
+    """Cross-rank hill merge of G pH groups at once (the JAX package's
+    ``make_mesh_group_merge(mesh, axis, p)``, shard_map + psum; here
+    ``(group, p)``, a torch.distributed process group or None for the
+    default group). Returns merge(V, dV, seq): V/dV (G, S, nbins) shared
+    tables and seq (G, W, K, S) per-walker λ snapshots, both the same on
+    every rank (the JAX package's global arrays); the walker axis is
+    split into contiguous slices in rank order, as its sharding splits
+    it, and W % world != 0 is refused. Each rank folds its walkers' hills
+    with deposit_frozen against the frozen tables, and the (G, S, nbins)
+    ΔV and ΔdV of all groups go through one all-reduce (the campaign
+    driver's MPI_Allreduce analog, fix_constant_pH.cpp:274). Returns
+    (V + ΔV, dV + ΔdV), the serial frozen merge up to float addition
+    order."""
+    def merge(V, dV, seq):
+        n, r = comm.world(group), comm.rank(group)
+        W = seq.shape[1]
+        if W % n:
+            raise ValueError(f"{W} walkers do not split over {n} ranks")
+        own = seq[:, r * (W // n):(r + 1) * (W // n)]
+        deltas = []
+        for g in range(V.shape[0]):
+            deltas.append(torch.stack(deposit_frozen(
+                V[g], dV[g], own[g].reshape(-1, seq.shape[-1]), p)))
+        tot = comm.all_reduce_sum(torch.stack(deltas, dim=1), group)
+        return V + tot[0], dV + tot[1]
+
+    return merge

@@ -40,6 +40,7 @@ import torch
 
 from constant_ph_tpu_torch import resolve_device, units
 from constant_ph_tpu_torch.batching import bview, replica_batched
+from constant_ph_tpu_torch.parallel import comm
 
 _SQRT_PI = 1.7724538509055159
 
@@ -182,7 +183,7 @@ def _mp_and_deriv(t, p: int):
     return mp * inv_fac, dmp * inv_fac
 
 
-def _cell_factors(wxg, sp, g, m, h, p):
+def _cell_factors(wxg, sp, g, m, h, p, x_first=0):
     """B-spline factors between each cell's extended-block mesh indices
     and its atoms, for the three dimensions at once (one evaluation over
     the blocks of all axes, concatenated along the mesh axis: the same
@@ -190,19 +191,23 @@ def _cell_factors(wxg, sp, g, m, h, p):
 
     wxg: (R, 3, gx, gy, gz, A) atom coords; sp: per-dim spacings (numbers,
     or (R,) tensors on a live box). Returns (Bd, dBd): per dimension d,
-    (R, gx, gy, gz, ext_d, A) with ext_d = m_d + 2·h_d."""
+    (R, gx, gy, gz, ext_d, A) with ext_d = m_d + 2·h_d. On an x-slab wxg
+    holds the cells of the x-layers from global layer ``x_first`` on."""
     dtype, dev = wxg.dtype, wxg.device
     R = wxg.shape[0]
+    cells = tuple(wxg.shape[2:5])
     ts = []
     for d in range(3):
         u = wxg[:, d] / bview(sp[d], 5)
-        base = (torch.arange(g[d], dtype=dtype, device=dev) * m[d])[:, None]
+        first = x_first if d == 0 else 0
+        base = (torch.arange(first, first + cells[d], dtype=dtype,
+                             device=dev) * m[d])[:, None]
         jgrid = base + torch.arange(-h[d], m[d] + h[d], dtype=dtype,
                                     device=dev)[None, :]
         shape = [1, 1, 1, jgrid.shape[1], 1]
-        shape[d] = g[d]
+        shape[d] = cells[d]
         ts.append((u[..., None, :] - jgrid.reshape(shape) + p / 2.0)
-                  .expand(R, *g, jgrid.shape[1], u.shape[-1]))
+                  .expand(R, *cells, jgrid.shape[1], u.shape[-1]))
     ext = [m[d] + 2 * h[d] for d in range(3)]
     B, dB = _mp_and_deriv(torch.cat(ts, dim=4), p)
     return torch.split(B, ext, dim=4), torch.split(dB, ext, dim=4)
@@ -264,7 +269,7 @@ def _solute_factors(s_mod, M, p):
 
 @replica_batched(5)
 def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
-                    need_water_phi: bool = False, box=None):
+                    need_water_phi: bool = False, box=None, slab=None):
     """Reciprocal + self + background electrostatics on tiles + solute.
 
     One replica's shapes below; a batch adds a leading R to each array
@@ -276,11 +281,22 @@ def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
     (NPT), from which the influence function, spacing and volume are
     derived on the device; None uses the params' build-time box. Returns
     (e, fw (3, gx, gy, gz, A), fs (Ns, 3), phi_s (Ns,), phi_w (gx, gy, gz,
-    A) or None)."""
+    A) or None).
+
+    On an x-slab of the cell grid (``slab``, a parallel.spatial.Slab) wxg
+    and wq hold a rank's n owned x-layers, the first at global layer
+    slab.x_first: each rank spreads its own cells into the full (R, Mx,
+    My, Mz) mesh, the water mesh and the water charge sums are summed over
+    slab.group in one all-reduce, and every rank adds the solute, runs the
+    FFT and the influence function, and interpolates onto its own cells
+    and the solute. fw and phi_w are the
+    owned cells'; e, fs and phi_s are every rank's alike."""
     g, m, h, p = pp.grid, pp.m, pp.h, pp.p
     gx, gy, gz = g
     M = pp.mesh
     R = wxg.shape[0]
+    n = wxg.shape[2]                                  # x-layers held
+    x_first = 0 if slab is None else slab.x_first
     if box is None:
         sp, Ahat, volume = pp.spacing, pp.Ahat, pp.volume
         boxv = pp.box.expand(R, 3)
@@ -289,7 +305,7 @@ def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
         boxv = box
 
     # ---- water spreading: per-cell extended blocks via factor matmuls ----
-    Bd, dBd = _cell_factors(wxg, sp, g, m, h, p)
+    Bd, dBd = _cell_factors(wxg, sp, g, m, h, p, x_first)
     ex, ey, ez = (m[d] + 2 * h[d] for d in range(3))
     A_at = wq.shape[-1]
 
@@ -297,9 +313,22 @@ def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
     # once and scaled by q in place
     tyz_q = Bd[1][..., :, None, :] * Bd[2][..., None, :, :]  # (...,ey,ez,A)
     tyz_q.mul_(wq[..., None, None, :])
-    tyz_q = tyz_q.reshape(R, gx, gy, gz, ey * ez, A_at)
+    tyz_q = tyz_q.reshape(R, n, gy, gz, ey * ez, A_at)
     Qext = torch.matmul(Bd[0], tyz_q.transpose(-1, -2))      # (...,ex,ey*ez)
-    Q = _overlap_add(Qext.reshape(R, gx, gy, gz, ex, ey, ez), g, m, h)
+    Qext = Qext.reshape(R, n, gy, gz, ex, ey, ez)
+    if n != gx:                      # a slab: its blocks in the full grid
+        full = Qext.new_zeros((R, gx, gy, gz, ex, ey, ez))
+        full[:, x_first:x_first + n] = Qext
+        Qext = full
+    Q = _overlap_add(Qext, g, m, h)
+    qsum_w = torch.sum(wq.flatten(1), dim=-1)
+    q2sum_w = torch.sum((wq * wq).flatten(1), dim=-1)
+    if slab is not None:
+        red = comm.all_reduce_sum(torch.cat(
+            [Q.reshape(R, -1), qsum_w[:, None], q2sum_w[:, None]], dim=1),
+            slab.group)
+        Q = red[:, :-2].reshape(Q.shape)
+        qsum_w, q2sum_w = red[:, -2], red[:, -1]
 
     # ---- solute spreading (dense over the full mesh; Ns is small) ----
     Ns = qs.shape[-1]
@@ -321,12 +350,12 @@ def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
     e_rec = 0.5 * torch.sum(Q * phi_mesh, dim=mesh_dims)
 
     # ---- interpolation: forces (+ φ where needed) ----
-    blk2 = _extract_blocks(phi_mesh, g, m, h).reshape(R, gx, gy, gz, ex,
-                                                      ey * ez)
+    blk2 = _extract_blocks(phi_mesh, g, m, h).narrow(1, x_first, n).reshape(
+        R, n, gy, gz, ex, ey * ez)
     V0 = torch.matmul(Bd[0].transpose(-1, -2), blk2)        # (...,A,ey*ez)
     V1 = torch.matmul(dBd[0].transpose(-1, -2), blk2)
-    V0 = V0.reshape(R, gx, gy, gz, A_at, ey, ez)
-    V1 = V1.reshape(R, gx, gy, gz, A_at, ey, ez)
+    V0 = V0.reshape(R, n, gy, gz, A_at, ey, ez)
+    V1 = V1.reshape(R, n, gy, gz, A_at, ey, ez)
     W00 = torch.einsum("...ya,...ayz->...az", Bd[1], V0)
     W10 = torch.einsum("...ya,...ayz->...az", Bd[1], V1)
     W01 = torch.einsum("...ya,...ayz->...az", dBd[1], V0)
@@ -358,9 +387,8 @@ def pme_recip_tiled(wxg, wq, sx, qs, pp: PMEParams, *,
 
     # ---- self energy + neutralising background (as in ops.ewald) ----
     C = units.QQR2E
-    qsum = torch.sum(wq.flatten(1), dim=-1) + torch.sum(qs, dim=-1)
-    q2sum = (torch.sum((wq * wq).flatten(1), dim=-1)
-             + torch.sum(qs * qs, dim=-1))
+    qsum = qsum_w + torch.sum(qs, dim=-1)
+    q2sum = q2sum_w + torch.sum(qs * qs, dim=-1)
     e_self = -C * pp.alpha / _SQRT_PI * q2sum
     e_bg = -C * math.pi / (2.0 * pp.alpha**2 * volume) * qsum * qsum
     corr0 = -2.0 * C * pp.alpha / _SQRT_PI

@@ -1,2 +1,4 @@
-"""pH replica exchange (port of constant_ph_tpu/parallel). The spatial
-sharding and the cross-device merges come with the multi-GPU slice."""
+"""Multi-device parallelism on torch.distributed (port of
+constant_ph_tpu/parallel): the process-group layer (comm), pH replica
+exchange and the replica batch over ranks (replica), the x-slab spatial
+decomposition (spatial) and the multi-rank dry run (dryrun)."""

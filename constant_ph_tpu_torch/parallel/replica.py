@@ -18,6 +18,14 @@ on pH only through f(λ)·kT·ln10·(pK − pH) per site, so
     β·Δ = ln10 · (pH_i − pH_j) · (F_i − F_j),   F = Σ_sites f(λ_s)
 
 and no energy is re-evaluated.
+
+Over ranks (torch.distributed, parallel/comm.py), the batch is split into
+contiguous slices in rank order (``split_replicas``): a rank runs its
+slice as its engine's batch, each replica with the generator it has in the
+one-process batch, and the swap is decided on the all-gathered (R,) λ and
+pH with uniforms drawn from a generator that is the same on every rank;
+each rank keeps its slice of the swapped pHs. A replica's trajectory is
+then the one it has in the one-process batch.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 from constant_ph_tpu_torch import lambda_dyn, resolve_device, units
 from constant_ph_tpu_torch.batching import replica_of
 from constant_ph_tpu_torch.engine import Observables
+from constant_ph_tpu_torch.parallel import comm
 
 
 def _tensor_fields(state):
@@ -75,18 +84,12 @@ def replica_generators(seeds, device="cuda") -> list:
     return [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
 
 
-def swap_phs(states, generator, bias, parity, u=None):
-    """One even/odd pH-swap sweep over the replica batch (leading axis R).
-
-    parity 0 swaps pairs (0,1),(2,3),…; 1 swaps (1,2),(3,4),…. The
-    Metropolis uniforms ``u`` (R,) are drawn from ``generator`` unless
-    given (the JAX package draws jax.random.uniform(key, (R,))); each pair
-    uses the uniform of its lower index. Returns (new_states,
-    accepted_mask)."""
-    pH = states.pH
+def _swap(lam, pH, generator, bias, parity, u=None):
+    """The swap sweep on (R, S) λ and (R,) pH: (new pH (R,), accepted
+    (R,))."""
     R = pH.shape[0]
     dev = pH.device
-    F = torch.sum(lambda_dyn.switching(states.lam, bias)[0], dim=1)   # (R,)
+    F = torch.sum(lambda_dyn.switching(lam, bias)[0], dim=1)   # (R,)
     idx = torch.arange(R, device=dev)
     partner = torch.where((idx - parity) % 2 == 0, idx + 1, idx - 1)
     partner = torch.clamp(partner, 0, R - 1)
@@ -97,11 +100,65 @@ def swap_phs(states, generator, bias, parity, u=None):
     if u is None:
         u = torch.rand((R,), generator=generator, dtype=pH.dtype, device=dev)
     accept = (u[low] < torch.exp(torch.clamp(-beta_dH, max=0.0))) & valid
-    new_pH = torch.where(accept, pH[partner], pH)
-    return dataclasses.replace(states, pH=new_pH), accept
+    return torch.where(accept, pH[partner], pH), accept
 
 
-def make_rex_runner(engine, md_steps_per_swap: int):
+def swap_phs(states, generator, bias, parity, u=None, group=None):
+    """One even/odd pH-swap sweep over the replica batch (leading axis R).
+
+    parity 0 swaps pairs (0,1),(2,3),…; 1 swaps (1,2),(3,4),…. The
+    Metropolis uniforms ``u`` (R,) are drawn from ``generator`` unless
+    given (the JAX package draws jax.random.uniform(key, (R,))); each pair
+    uses the uniform of its lower index. Returns (new_states,
+    accepted_mask).
+
+    With a process group ``group`` of more than one rank, ``states`` is
+    this rank's slice of the batch (split_replicas): λ and pH of every
+    rank are all-gathered (one call), the sweep runs on the whole (R,)
+    batch with uniforms (R,) that ``generator`` draws alike on every rank,
+    and the rank keeps its slice of the new pHs and of the accepted
+    mask."""
+    if comm.world(group) == 1:
+        new_pH, accept = _swap(states.lam, states.pH, generator, bias,
+                               parity, u)
+        return dataclasses.replace(states, pH=new_pH), accept
+    both = comm.all_gather(torch.cat([states.lam, states.pH[:, None]],
+                                     dim=1), group)
+    both = both.reshape(-1, both.shape[-1])
+    new_pH, accept = _swap(both[:, :-1], both[:, -1], generator, bias,
+                           parity, u)
+    own = rank_slice(both.shape[0], group)
+    return dataclasses.replace(states, pH=new_pH[own]), accept[own]
+
+
+def rank_slice(R: int, group=None) -> slice:
+    """The replicas of a batch of R that this rank runs: a contiguous
+    slice in rank order; R % world != 0 is refused."""
+    n, r = comm.world(group), comm.rank(group)
+    if R % n:
+        raise ValueError(f"{R} replicas do not split over {n} ranks")
+    return slice(r * (R // n), (r + 1) * (R // n))
+
+
+def split_replicas(batch, group=None):
+    """This rank's slice (rank_slice) of a batch (contiguous copies; host
+    fields as they are)."""
+    R = getattr(batch, _tensor_fields(batch)[0]).shape[0]
+    own = rank_slice(R, group)
+    return dataclasses.replace(batch, **{
+        n: getattr(batch, n)[own].contiguous()
+        for n in _tensor_fields(batch)})
+
+
+def _rank_generators(engine, R_local, device, group):
+    """One generator per replica of this rank's slice, seeded from
+    (engine seed, r) with r the replica's index in the whole batch."""
+    own = rank_slice(R_local * comm.world(group), group)
+    return replica_generators([_fold_in(engine.cfg.seed, r)
+                               for r in range(own.start, own.stop)], device)
+
+
+def make_rex_runner(engine, md_steps_per_swap: int, group=None):
     """Replica-exchange block on the reference engine:
     block(states, nbrs, generator, parity, u=None) → (states, nbrs,
     generator, accept, obs_last). ``states`` and ``nbrs`` are a batch
@@ -109,17 +166,19 @@ def make_rex_runner(engine, md_steps_per_swap: int):
     as one: one ``make_run`` call a block. Replica r's noise comes from
     ``block.generators[r]``, made at the first call from (engine seed, r);
     ``generator`` draws the swap uniforms unless ``u`` (R,) gives them.
-    Nothing is read back to the host."""
+    Nothing is read back to the host. With a process group ``group``,
+    ``states`` / ``nbrs`` are this rank's slice (split_replicas), replica
+    r's generator is seeded from its index in the whole batch, and the
+    swap runs over ranks (swap_phs)."""
     run = engine.make_run(md_steps_per_swap)
 
     def block(states, nbrs, generator, parity, u=None):
         if block.generators is None:
-            block.generators = replica_generators(
-                [_fold_in(engine.cfg.seed, r)
-                 for r in range(states.pH.shape[0])], states.pH.device)
+            block.generators = _rank_generators(
+                engine, states.pH.shape[0], states.pH.device, group)
         states, nbrs, obs = run(states, nbrs, block.generators)  # (R, T, …)
         states, accepted = swap_phs(states, generator, engine.bias, parity,
-                                    u=u)
+                                    u=u, group=group)
         last_obs = Observables(**{
             f.name: getattr(obs, f.name)[:, -1]
             for f in dataclasses.fields(Observables)})
@@ -130,7 +189,8 @@ def make_rex_runner(engine, md_steps_per_swap: int):
 
 
 def make_rex_runner_tiled(engine, md_steps_per_swap: int,
-                          with_stats: bool = False, generators=None):
+                          with_stats: bool = False, generators=None,
+                          group=None):
     """Replica-exchange block on the tiled engine:
     block(states, generator, parity) → (states, generator, accept,
     obs_last), or with ``with_stats=True`` (states, generator, accept,
@@ -141,16 +201,19 @@ def make_rex_runner_tiled(engine, md_steps_per_swap: int,
     from ``block.generators[r]``: the list given, or one generator per
     replica made at the first call, seeded from (engine seed, r). Nothing
     is read back to the host. The R replicas run as one batch: one
-    ``make_run`` call a block."""
+    ``make_run`` call a block. With a process group ``group``, ``states``
+    is this rank's slice (split_replicas), replica r's generator is seeded
+    from its index in the whole batch, and the swap runs over ranks
+    (swap_phs)."""
     run = engine.make_run(md_steps_per_swap)
 
     def block(states, generator, parity):
         if block.generators is None:
-            block.generators = replica_generators(
-                [_fold_in(engine.cfg.seed, r)
-                 for r in range(states.pH.shape[0])], states.pH.device)
+            block.generators = _rank_generators(
+                engine, states.pH.shape[0], states.pH.device, group)
         states, overflow, obs = run(states, block.generators)  # (R, T, …)
-        states, accepted = swap_phs(states, generator, engine.bias, parity)
+        states, accepted = swap_phs(states, generator, engine.bias, parity,
+                                    group=group)
         last_obs = Observables(**{
             f.name: getattr(obs, f.name)[:, -1]
             for f in dataclasses.fields(Observables)})

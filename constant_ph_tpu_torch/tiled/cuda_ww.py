@@ -8,7 +8,9 @@
 
 Both take a batch of R replicas in one launch (a leading replica axis on
 the tiles and the box; the grid's z dimension in the kernels); one
-replica's tiles run as a batch of one. See the note at the top of each
+replica's tiles run as a batch of one. Both have a slab entry
+(``x_first=``): tiles of a rank's owned x-layers between two ghost
+layers (parallel/spatial.py), outputs for the owned cells. See the note at the top of each
 source for its design and bound. Each
 source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, at first use, under ``constant_ph_tpu_torch/_build/``
@@ -91,14 +93,14 @@ _ARGTYPES = {
         "ww_pair_blocks": [ctypes.c_int, ctypes.c_int],
         "ww_pair_smem_bytes": [ctypes.c_int, ctypes.c_int],
         "ww_pair_forward": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                            + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p] + [ctypes.c_int] * 6
                             + [ctypes.c_void_p]),
     },
     "ww_tally": {
         "ww_tally_param_count": [],
         "ww_tally_smem_bytes": [ctypes.c_int, ctypes.c_int],
         "ww_tally_forward": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                             + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p] + [ctypes.c_int] * 5
                              + [ctypes.c_void_p]),
     },
 }
@@ -177,8 +179,27 @@ def _params(wm, style, alpha, rc):
 R_MAX = 65535
 
 
+def slab_layers(t, p, x_first, x_axis):
+    """(x-layers of the tile array t, owned x-layers) of a kernel call:
+    the whole grid (gx, gx) without ``x_first``; on a slab, t's layers
+    along ``x_axis`` are the owned ones between two ghost layers, within
+    the global grid."""
+    gx = p.grid[0]
+    if x_first is None:
+        return gx, gx
+    if t.ndim <= x_axis:
+        raise ValueError("a slab's tiles need their x axis")
+    gxa = t.shape[x_axis]
+    gxo = gxa - 2
+    if gxo < 1 or not 0 <= x_first <= gx - gxo:
+        raise ValueError(f"a slab of {gxa} x-layers (ghosts included) at "
+                         f"x {x_first} does not fit the global gx {gx}")
+    return gxa, gxo
+
+
 @replica_batched(5)
-def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
+def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None,
+                     x_first=None):
     """The water-water block on the GPU, one launch for a batch of R
     replicas: wxg (R, 3, gx, gy, gz, 3W), box (R, 3) → (e_lj (R,), e_coul
     (R,), f shaped like wxg), as tiled.forces.water_water_fast_plain; one
@@ -187,9 +208,15 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
     kernel evaluated are left, as an (R,) int32 tensor on the device, in
     ``water_water_cuda.pairs_evaluated``, and the passes it staged the
     stencil in in ``water_water_cuda.passes`` (chosen from W by
-    pass_count; ``passes`` forces a count, for checks only)."""
+    pass_count; ``passes`` forces a count, for checks only).
+
+    Slab entry (``x_first`` the global x index of the first owned layer):
+    wxg (R, 3, n + 2, gy, gz, 3W) holds n owned x-layers of the global
+    grid ``p.grid`` between two ghost layers; f is (R, 3, n, gy, gz, 3W)
+    and the energies count the owned cells' pairs (tiled.forces.
+    water_water_slab_plain). It counts in ``spatial_launches`` too."""
     gx, gy, gz = p.grid
-    G, W = p.G, p.W
+    W = p.W
     A = 3 * W
     R = wxg.shape[0]
     if min(p.grid) < 3:
@@ -197,11 +224,14 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
                          "dim (the stencil would alias)")
     if style not in ("dsf", "cut"):
         raise ValueError(f"unknown coulomb style {style!r}")
+    gxa, gxo = slab_layers(wxg, p, x_first, 2)
+    G = gxo * gy * gz
     if not (wxg.is_cuda and wxg.dtype == torch.float32
-            and wxg.is_contiguous() and wxg.numel() == R * 3 * G * A
+            and wxg.is_contiguous()
+            and wxg.numel() == R * 3 * gxa * gy * gz * A
             and wxg.shape[1] == 3 and wxg.shape[-1] == A):
         raise ValueError("wxg must be a contiguous float32 CUDA tensor of "
-                         f"shape (R, 3, {gx}, {gy}, {gz}, {A})")
+                         f"shape (R, 3, {gxa}, {gy}, {gz}, {A})")
     if not (box.is_cuda and box.dtype == torch.float32
             and box.is_contiguous() and tuple(box.shape) == (R, 3)):
         raise ValueError("box must be a contiguous float32 CUDA tensor "
@@ -216,7 +246,8 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
     lib = _lib("ww_pair")
     n_pass = pass_count(lib.ww_pair_smem_bytes, W, passes)
     dev = wxg.device
-    f = torch.empty_like(wxg)
+    f = torch.empty((R, 3, gxo, gy, gz, A) if x_first is not None
+                    else wxg.shape, dtype=wxg.dtype, device=dev)
     # one scratch buffer: e_out (2R floats), n_out (R ints), padding to 16
     # bytes, then the per-block partials (2 floats and 1 int a block)
     nblk = R * lib.ww_pair_blocks(G, W)
@@ -227,12 +258,13 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
     prm = _params(wm, style, alpha, rc)
     err = lib.ww_pair_forward(
         wxg.data_ptr(), box.data_ptr(), f.data_ptr(), part, part + 8 * nblk,
-        base, base + 8 * R, gx, gy, gz, W, ctypes.addressof(prm),
-        int(style == "dsf"), n_pass, R,
-        torch.cuda.current_stream(dev).cuda_stream)
+        base, base + 8 * R, gxa, gy, gz, W, ctypes.addressof(prm),
+        int(style == "dsf"), n_pass, R, int(x_first is not None),
+        x_first or 0, gx, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_pair kernel launch failed: CUDA error {err}")
     water_water_cuda.launches += 1
+    water_water_cuda.spatial_launches += x_first is not None
     water_water_cuda.passes = n_pass
     water_water_cuda.pairs_evaluated = scratch[2 * R:3 * R].view(torch.int32)
     e = scratch[:2 * R].view(R, 2)
@@ -240,6 +272,7 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None):
 
 
 water_water_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
+water_water_cuda.spatial_launches = 0     # of them, through the slab entry
 water_water_cuda.pairs_evaluated = None   # (R,) of the last launch
 water_water_cuda.passes = None            # of the last launch
 
@@ -257,7 +290,7 @@ def _tally_params(wm, style, alpha, rc):
 
 @replica_batched(5)
 def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
-                           passes=None):
+                           passes=None, x_first=None):
     """The full-tally water-water kernel on the GPU, one launch for a
     batch of R replicas: packed tiles wt (R, gx, gy, gz, 8, A) and box
     (R, 3) → out shaped like wt, as tiled.forces.water_water_tally_plain;
@@ -266,9 +299,15 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
     the kernel evaluated are left, as an (R,) int32 tensor on the device,
     in ``water_water_tally_cuda.pairs_evaluated``, and the passes it
     staged the stencil in in ``water_water_tally_cuda.passes`` (chosen
-    from W by pass_count; ``passes`` forces a count, for checks only)."""
+    from W by pass_count; ``passes`` forces a count, for checks only).
+
+    Slab entry (``x_first`` the global x index of the first owned layer):
+    wt (R, n + 2, gy, gz, 8, A) holds n owned x-layers of the global grid
+    ``p.grid`` between two ghost layers; out is (R, n, gy, gz, 8, A)
+    (tiled.forces.water_water_tally_plain with ``x_first``). It counts in
+    ``spatial_launches`` too."""
     gx, gy, gz = p.grid
-    G, W = p.G, p.W
+    W = p.W
     A = 3 * W
     R = wt.shape[0]
     if min(p.grid) < 3:
@@ -276,10 +315,12 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
                          "dim (the 27 offsets must be distinct cells)")
     if style not in ("dsf", "cut"):
         raise ValueError(f"unknown coulomb style {style!r}")
+    gxa, gxo = slab_layers(wt, p, x_first, 1)
+    G = gxo * gy * gz
     if not (wt.is_cuda and wt.dtype == torch.float32 and wt.is_contiguous()
-            and tuple(wt.shape) == (R, gx, gy, gz, 8, A)):
+            and tuple(wt.shape) == (R, gxa, gy, gz, 8, A)):
         raise ValueError("wt must be a contiguous float32 CUDA tensor of "
-                         f"shape (R, {gx}, {gy}, {gz}, 8, {A})")
+                         f"shape (R, {gxa}, {gy}, {gz}, 8, {A})")
     if not (box.is_cuda and box.dtype == torch.float32
             and box.is_contiguous() and tuple(box.shape) == (R, 3)):
         raise ValueError("box must be a contiguous float32 CUDA tensor "
@@ -293,22 +334,25 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
                          f"(W={W}, G={G}, R={R})")
     lib = _lib("ww_tally")
     n_pass = pass_count(lib.ww_tally_smem_bytes, W, passes)
-    out = torch.empty_like(wt)
+    out = torch.empty((R, gxo, gy, gz, 8, A), dtype=wt.dtype,
+                      device=wt.device)
     count = torch.empty(R, dtype=torch.int32, device=wt.device)
     prm = _tally_params(wm, style, alpha, rc)
     err = lib.ww_tally_forward(
         wt.data_ptr(), box.data_ptr(), out.data_ptr(), count.data_ptr(),
-        gx, gy, gz, W, ctypes.addressof(prm), int(style == "dsf"),
-        int(alpha > 0.0), n_pass, R,
+        gxa, gy, gz, W, ctypes.addressof(prm), int(style == "dsf"),
+        int(alpha > 0.0), n_pass, R, int(x_first is not None),
         torch.cuda.current_stream(wt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_tally kernel launch failed: CUDA error {err}")
     water_water_tally_cuda.launches += 1
+    water_water_tally_cuda.spatial_launches += x_first is not None
     water_water_tally_cuda.passes = n_pass
     water_water_tally_cuda.pairs_evaluated = count
     return out
 
 
 water_water_tally_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
+water_water_tally_cuda.spatial_launches = 0   # of them, through the slab entry
 water_water_tally_cuda.pairs_evaluated = None   # (R,) of the last launch
 water_water_tally_cuda.passes = None            # of the last launch

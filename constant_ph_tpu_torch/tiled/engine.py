@@ -36,6 +36,17 @@ k-space is smooth PME (``kspace_ep`` a PMEParams, also on the live box
 under NPT) or factorized Ewald (an ops.ewald.EwaldParams: every water slot
 and solute atom in one list, charges masked by validity); both run under
 ``kspace_every`` impulse MTS.
+
+With ``spatial`` (a process group, parallel.spatial.make_spatial_mesh)
+the engine runs on x-slabs of the cell grid: its states hold the rank's
+owned cells (parallel.spatial.shard_tiled_state), one halo exchange a
+force evaluation feeds K1's / K2's slab entries, the water-derived
+energies, solute forces, φ and the PME mesh are all-reduced, the water
+kinetic energy is all-reduced where it is used, rebinning gathers the
+tiles once a block, and the Langevin noise of the whole grid is drawn on
+every rank alike (parallel/spatial.py). Not on slabs: factorized Ewald,
+grids below 3 cells per dim, make_minimize, and the barostat
+(tiled/npt.py), which refuse.
 """
 from __future__ import annotations
 
@@ -62,6 +73,7 @@ from constant_ph_tpu_torch.lambda_dyn import BiasParams
 from constant_ph_tpu_torch.ops.bonded import bonded_forces
 from constant_ph_tpu_torch.ops.ewald import ewald_recip_xd
 from constant_ph_tpu_torch.ops.pme import PMEParams, pme_recip_tiled
+from constant_ph_tpu_torch.parallel import comm, spatial as spatial_mod
 from constant_ph_tpu_torch.tiled import forces as tforces
 from constant_ph_tpu_torch.tiled.layout import (
     TiledState,
@@ -102,7 +114,8 @@ class TiledForces(PerReplica):
 class TiledEngine:
     def __init__(self, tsys: TiledSystem, config: EngineConfig = EngineConfig(),
                  bias: BiasParams = BiasParams(), kspace_ep=None,
-                 use_pallas_ww=False, metad=None, metad_frozen=False):
+                 use_pallas_ww=False, metad=None, metad_frozen=False,
+                 spatial=None):
         if config.kspace_every < 1:
             raise ValueError("kspace_every must be >= 1")
         if (config.kspace_live_box and kspace_ep is not None
@@ -113,6 +126,14 @@ class TiledEngine:
                 "ops.pme.make_pme_params for NPT k-space")
         if metad is not None and tsys.spec is None:
             raise ValueError("metadynamics needs titratable sites")
+        # the rank's x-slab (parallel/spatial.py), or None
+        self.slab = None
+        if spatial is not None:
+            if kspace_ep is not None and not isinstance(kspace_ep,
+                                                        PMEParams):
+                raise NotImplementedError(
+                    "factorized Ewald on x-slabs is not ported; use PME")
+            self.slab = spatial_mod.slab_of(spatial, tsys.params)
         full_float32_matmuls()
 
         self.ts = tsys
@@ -193,6 +214,9 @@ class TiledEngine:
         gx, gy, gz = p.grid
         W = p.W
         R = st.wx.shape[0]
+        slab = self.slab
+        G = st.wx.shape[2]                     # cells held (a slab's own)
+        gx = G // (gy * gz)
         # the kernels take contiguous tiles and boxes; a batch sliced out
         # of another (every other replica) is strided
         box = st.box.contiguous()
@@ -202,12 +226,18 @@ class TiledEngine:
         wvg = st.wvalid.reshape(R, gx, gy, gz, W)
 
         fast_ok = min(p.grid) >= 3 and not need_tally
-        if self.use_pallas_ww:
+        wxk, wvk, kwk = wxg, wvg, kw          # the kernels' tiles
+        if slab is not None:
+            # one halo exchange into the kernels' slab entries; K2's also
+            # serves the tallies
+            wxk, wvk = spatial_mod.halo(wxg, wvg, slab)
+            kwk = dict(kw, x_first=slab.x_first)
+        if self.use_pallas_ww or (need_tally and slab is not None):
             e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water_tally(
-                wxg, wvg, ts.water, p, box, **kw)
+                wxk, wvk, ts.water, p, box, **kwk)
         elif fast_ok:
             e_lj_ww, e_c_ww, f_ww = tforces.water_water_fast(
-                wxg, ts.water, p, box, **kw)
+                wxk, ts.water, p, box, **kwk)
             eatom_ww = torch.zeros_like(wxg[:, 0])
         else:
             e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water(
@@ -216,20 +246,28 @@ class TiledEngine:
         qs = self.charges_solute(st.lam)                     # (R, Ns)
         if fast_ok:
             e_lj_ws, e_c_ws, f_w_ws, f_s_ws, phi_s_ws = \
-                tforces.water_solute_fast(wxg, st.sx, qs, ts.solute,
-                                          ts.water, p, box, **kw)
+                tforces.water_solute_fast(
+                    wxg, st.sx, qs, ts.solute, ts.water, p, box,
+                    x_first=0 if slab is None else slab.x_first, **kw)
             eatom_w_ws = torch.zeros_like(wxg[:, 0])
             eatom_s_ws = torch.zeros_like(qs)
         else:
             (e_lj_ws, e_c_ws, f_w_ws, f_s_ws, eatom_w_ws, eatom_s_ws, _,
              phi_s_ws) = tforces.water_solute(
                 wxg, wvg, st.sx, qs, ts.solute, ts.water, p, box, **kw)
+        if slab is not None:
+            # the water-derived sums over the ranks, in one all-reduce;
+            # the solute's own terms below run on every rank alike
+            (e_lj_ww, e_c_ww, e_lj_ws, e_c_ws, f_s_ws, phi_s_ws,
+             eatom_s_ws) = self._sum_over_slabs(
+                e_lj_ww, e_c_ww, e_lj_ws, e_c_ws, f_s_ws, phi_s_ws,
+                eatom_s_ws)
         e_lj_ss, e_c_ss, f_ss, eatom_ss, phi_ss = tforces.solute_solute(
             st.sx, qs, ts.solute, box, **kw)
 
-        fw = (f_ww + f_w_ws).reshape(R, 3, self.G, 3 * W)
+        fw = (f_ww + f_w_ws).reshape(R, 3, G, 3 * W)
         fs = f_s_ws + f_ss
-        eatom_w = (eatom_ww + eatom_w_ws).reshape(R, self.G, 3 * W)
+        eatom_w = (eatom_ww + eatom_w_ws).reshape(R, G, 3 * W)
         eatom_s = eatom_s_ws + eatom_ss
         phi_s = phi_s_ws + phi_ss
 
@@ -258,12 +296,13 @@ class TiledEngine:
             ek, fwk, fsk, phi_recip, phi_wk = pme_recip_tiled(
                 wxg, wqg, st.sx, qs_m, self.kspace_ep,
                 need_water_phi=need_tally,
-                box=st.box if self.cfg.kspace_live_box else None)
-            fw = fw + float(k_ev) * fwk.reshape(R, 3, self.G, 3 * W)
+                box=st.box if self.cfg.kspace_live_box else None,
+                slab=slab)
+            fw = fw + float(k_ev) * fwk.reshape(R, 3, G, 3 * W)
             fs = fs + float(k_ev) * fsk
             if need_tally:
                 eatom_w = eatom_w + (0.5 * wqg * phi_wk).reshape(
-                    R, self.G, 3 * W)
+                    R, G, 3 * W)
                 eatom_s = eatom_s + 0.5 * qs_m * phi_recip
             e_kspace = ek + self.e_corr
         elif self.kspace_ep is not None:
@@ -318,6 +357,20 @@ class TiledEngine:
             phi_recip_s=phi_recip,
         )
 
+    def _sum_over_slabs(self, *parts):
+        """Each (R, …) tensor of ``parts`` summed over the slabs' ranks,
+        all in one all-reduce."""
+        R = parts[0].shape[0]
+        flat = comm.all_reduce_sum(
+            torch.cat([t.reshape(R, -1) for t in parts], dim=1),
+            self.slab.group)
+        out, at = [], 0
+        for t in parts:
+            k = t[0].numel()
+            out.append(flat[:, at:at + k].reshape(t.shape))
+            at += k
+        return out
+
     # -- diagnostics ------------------------------------------------------------
 
     def memory_usage(self) -> dict:
@@ -332,10 +385,13 @@ class TiledEngine:
                 "solute": solute, "total": tiles + masks + solute}
 
     def _ke(self, wvalid, wv, sv):
-        """Kinetic energy (R,) of a batch's velocities."""
+        """Kinetic energy (R,) of a batch's velocities (on slabs, the
+        water's summed over the ranks)."""
         vm_atoms = torch.repeat_interleave(wvalid, 3, dim=-1)[:, None]
         ke_w = 0.5 * units.MVV2E * torch.sum(
             (self.wmass * wv * wv * vm_atoms).flatten(1), dim=-1)
+        if self.slab is not None:
+            ke_w = comm.all_reduce_sum(ke_w, self.slab.group)
         sol = self.ts.solute
         ke_s = 0.5 * units.MVV2E * torch.sum(
             (sol.mass[:, None] * sv * sv * sol.smask[:, None]).flatten(1),
@@ -378,8 +434,10 @@ class TiledEngine:
         if frc is None:
             frc = self.compute_forces(st, need_tally=True)
         vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
-        HA = (torch.sum(frc.eatom_w * vm_atoms, dim=(-2, -1))
-              + torch.sum(frc.eatom_s * self.ts.solute.smask, dim=-1))
+        HA_w = torch.sum(frc.eatom_w * vm_atoms, dim=(-2, -1))
+        if self.slab is not None:
+            HA_w = comm.all_reduce_sum(HA_w, self.slab.group)
+        HA = HA_w + torch.sum(frc.eatom_s * self.ts.solute.smask, dim=-1)
         HB = HA - torch.sum(torch.where(self.ts.groupH_mask, frc.eatom_s,
                                         0.0), dim=-1)
         return HA, HB
@@ -520,7 +578,9 @@ class TiledEngine:
             c1 = math.exp(-cfg.gamma * dt)
             sig_w = torch.sqrt((1.0 - c1 * c1) * kT
                                / (self.wmass * units.MVV2E))
-            wv = c1 * wv + sig_w * vm_atoms * replica_randn(wv, gens)
+            noise = (replica_randn(wv, gens) if self.slab is None else
+                     spatial_mod.slab_randn(wv, gens, self.slab, self.G))
+            wv = c1 * wv + sig_w * vm_atoms * noise
             sig_s = torch.sqrt((1.0 - c1 * c1) * kT
                                / (ts.solute.mass * units.MVV2E))[:, None]
             sv = c1 * sv + sig_s * ts.solute.smask[:, None] * replica_randn(
@@ -601,7 +661,12 @@ class TiledEngine:
                       n_min=5, max_move=0.05):
         """FIRE relaxation of the tiled system (λ held fixed); rigid-water
         constraints are projected every move. Returns minimize(st) →
-        (st with zero velocities, per-block final energies)."""
+        (st with zero velocities, per-block final energies). Not on
+        x-slabs."""
+        if self.slab is not None:
+            raise NotImplementedError(
+                "FIRE on x-slabs is not ported: minimise the whole grid, "
+                "then shard the state")
         block = self.cfg.rebuild_every
         n_blocks = -(-n_steps // block)
         inv_mw = (units.FTM2V / self.wmass)[None, None, :]
@@ -692,6 +757,13 @@ class TiledEngine:
             st, metad_v=mv, metad_dv=mdv,
             ext_work=st.ext_work + torch.sum(dV, dim=-1))
 
+    def _rebin(self, st: TiledState):
+        """layout.rebin of a batch; on slabs through one gather of the
+        tiles (parallel.spatial.rebin_slab)."""
+        if self.slab is None:
+            return rebin(st, self.ts.params)
+        return spatial_mod.rebin_slab(st, self.slab, self.ts.params)
+
     def make_run(self, n_steps: int, detailed_flags: bool = False):
         """Run loop: rebin + ``rebuild_every``-step blocks. Returns
         run(batch, generators=None) → (batch, overflow (R,), obs (R, T,
@@ -719,7 +791,7 @@ class TiledEngine:
             ov_drift = torch.zeros((R,), dtype=torch.bool, device=dev)
             rows = []
             for _ in range(n_blocks):
-                st, ov = rebin(st, self.ts.params)
+                st, ov = self._rebin(st)
                 ov_cap = ov_cap | ov
                 frc = self.compute_forces(st, kspace_impulse=True,
                                           phi_recip_prev=st.phi_recip_s)
@@ -730,8 +802,11 @@ class TiledEngine:
                 # rows keep their identity within a block (rebinning only
                 # moves rows at block start); parked rows don't move
                 dw2 = torch.sum((st.wx[..., 0::3] - wxO0) ** 2, dim=1)
-                ov_drift = ov_drift | (torch.amax(dw2, dim=(1, 2))
-                                       > drift_budget ** 2)
+                drift = torch.amax(dw2, dim=(1, 2)) > drift_budget ** 2
+                if self.slab is not None:
+                    drift = comm.all_reduce_sum(
+                        drift.to(torch.float32), self.slab.group) > 0
+                ov_drift = ov_drift | drift
                 # keep the k-space MTS carry in the state, so the next run
                 # call keeps the stale-φ λ coupling
                 st = dataclasses.replace(st, phi_recip_s=frc.phi_recip_s)

@@ -18,6 +18,14 @@ PyTorch version of the same function for a CPU tensor:
   kernel ``make_ww_kernel``): csrc/ww_tally.cu /
   ``water_water_tally_plain``.
 ``water_water`` and ``water_solute`` are the tally-path blocks (any grid).
+
+On an x-slab of the grid (parallel/spatial.py) both dispatchers take
+``x_first``, the slab entry: tiles of a rank's owned x-layers between two
+ghost layers in, the owned cells' outputs out. The plain versions there,
+``water_water_slab_plain`` and ``water_water_tally_plain`` with
+``x_first``, sum every pair on the i side over the full 27-cell stencil,
+as the kernels do, so a rank writes nothing into its ghosts and sends
+nothing back.
 """
 from __future__ import annotations
 
@@ -284,14 +292,15 @@ def solute_solute(sx, qs, st: SoluteTables, box, *, style, alpha, rc):
 
 @replica_batched(5)
 def water_solute_fast(wxg, sx, qs, st: SoluteTables, wm: WaterModel,
-                      p: TileParams, box, *, style, alpha, rc):
+                      p: TileParams, box, *, style, alpha, rc, x_first=0):
     """Hot-path water×solute block.
 
     Returns (e_lj, e_coul, f_w (3, gx, gy, gz, A), f_s (Ns, 3),
     phi_s (Ns,)). Images are resolved per CELL (the solute atom's nearest
     image to the cell centre), so parked water slots stay beyond the
     cutoff and no water validity mask is needed; solute pads fold into
-    q·smask and the LJ coefficients."""
+    q·smask and the LJ coefficients. On an x-slab wxg holds the owned
+    x-layers from global layer ``x_first`` on, and the sums cover them."""
     W = p.W
     dtype, dev = wxg.dtype, wxg.device
     rc2 = rc * rc
@@ -316,11 +325,13 @@ def water_solute_fast(wxg, sx, qs, st: SoluteTables, wm: WaterModel,
     r2 = None
     for d in range(3):
         g = p.grid[d]
+        n = wxg.shape[2 + d]                  # the cells held (a slab: n)
+        first = x_first if d == 0 else 0
         bd = bview(box[:, d], 5)                              # (R,1,1,1,1)
         shp = [R, 1, 1, 1, 1]
-        shp[1 + d] = g
-        cc = ((torch.arange(g, dtype=dtype, device=dev) + 0.5)
-              * (box[:, d:d + 1] / g)).reshape(shp)           # cell centres
+        shp[1 + d] = n
+        cc = ((torch.arange(first, first + n, dtype=dtype, device=dev)
+               + 0.5) * (box[:, d:d + 1] / g)).reshape(shp)   # cell centres
         sxd = sx[:, None, None, None, :, d]                   # (R,1,1,1,Ns)
         img = sxd - bd * torch.round((sxd - cc) / bd)
         dd = wxg[:, d][..., :, None] - img[..., None, :]      # (R,...,A,Ns)
@@ -351,27 +362,29 @@ def water_solute_fast(wxg, sx, qs, st: SoluteTables, wm: WaterModel,
 
 
 @replica_batched(1)
-def _roll_shift(box, grid, off, dtype):
+def _roll_shift(box, grid, off, dtype, x_first=0, n=None):
     """Per-cell image shifts for a rolled neighbour tile, (3, gx, gy, gz,
     1). ``torch.roll(x, -off)`` hands cell i the coordinates of cell
     (i + off) mod g; for boundary cells the source wrapped around the box,
     and adding ±L puts the neighbour in its contiguous image, so dx needs
-    no per-pair min-image (coordinates are box-wrapped at rebin)."""
+    no per-pair min-image (coordinates are box-wrapped at rebin). On an
+    x-slab (n owned x-layers from global layer ``x_first`` on) the shifts
+    of the owned cells, (3, n, gy, gz, 1), from the neighbours' global x
+    indices."""
+    cells = (grid[0] if n is None else n,) + tuple(grid[1:])
     shifts = []
     for d in range(3):
         g = grid[d]
-        s = np.zeros(g, dtype=np.float32)
-        if off[d] == 1:
-            s[g - 1] = 1.0
-        elif off[d] == -1:
-            s[0] = -1.0
+        c = np.arange(cells[d]) + (x_first if d == 0 else 0) + off[d]
+        s = np.where(c < 0, -1.0, np.where(c >= g, 1.0, 0.0)).astype(
+            np.float32)
         shape = [1, 1, 1, 1, 1]
-        shape[1 + d] = g
+        shape[1 + d] = cells[d]
         shifts.append(torch.as_tensor(s.reshape(shape), dtype=dtype,
                                       device=box.device)
                       * bview(box[:, d], 5))
     R = box.shape[0]
-    return torch.stack([torch.broadcast_to(s, (R,) + tuple(grid) + (1,))
+    return torch.stack([torch.broadcast_to(s, (R,) + cells + (1,))
                         for s in shifts], dim=1)
 
 
@@ -555,17 +568,118 @@ def water_pairs_in_cutoff(wxg, p: TileParams, box, rc):
 
 @replica_batched(5)
 def water_water_fast(wxg, wm: WaterModel, p: TileParams, box, *,
-                     style, alpha, rc):
+                     style, alpha, rc, x_first=None):
     """Hot-path water-water block (forces + total energies). Launches the
     CUDA kernel for a CUDA tensor and runs the plain version for a CPU
-    tensor; see water_water_fast_plain for the contract."""
+    tensor; see water_water_fast_plain for the contract. With
+    ``x_first``, K1's slab entry: wxg holds a rank's owned x-layers
+    between two ghost layers (water_water_slab_plain)."""
+    kw = dict(style=style, alpha=alpha, rc=rc)
     if wxg.is_cuda:
-        return cuda_ww.water_water_cuda(wxg, wm, p, box, style=style,
-                                        alpha=alpha, rc=rc)
+        return cuda_ww.water_water_cuda(wxg, wm, p, box, x_first=x_first,
+                                        **kw)
     if wxg.device.type != "cpu":
         raise ValueError(f"water_water_fast: no kernel for {wxg.device}")
-    return water_water_fast_plain(wxg, wm, p, box, style=style,
-                                  alpha=alpha, rc=rc)
+    if x_first is None:
+        return water_water_fast_plain(wxg, wm, p, box, **kw)
+    return water_water_slab_plain(wxg, wm, p, box, x_first=x_first, **kw)
+
+
+def _slab_neighbour(t, off, x_axis):
+    """The owned cells' neighbour tiles at stencil offset ``off`` of a
+    slab's tile array t: one ghost layer on each side of the owned ones
+    along ``x_axis`` (read without a wrap), y and z the next two axes
+    (periodic, rolled)."""
+    n = t.shape[x_axis] - 2
+    nb = t.narrow(x_axis, 1 + off[0], n)
+    return torch.roll(nb, (-off[1], -off[2]), dims=(x_axis + 1, x_axis + 2))
+
+
+def _check_slab_grid(p: TileParams, name):
+    if min(p.grid) < 3:
+        raise ValueError(f"{name} needs the global grid >= 3 per dim")
+
+
+@replica_batched(5)
+def water_water_slab_plain(wxh, wm: WaterModel, p: TileParams, box, *,
+                           x_first, style, alpha, rc):
+    """Plain PyTorch version of K1's slab entry: the hot-path water-water
+    block on a rank's x-slab. wxh: (3, n + 2, gy, gz, A), the n owned
+    x-layers of the global grid p.grid (the first at global x ``x_first``)
+    between two ghost layers; box: (3,). Returns (e_lj, e_coul, f (3, n,
+    gy, gz, A)) of the owned cells: each owned atom's force from every
+    pair, and every pair with an owned i atom counted with 0.5 (its other
+    half belongs to the owner of j).
+
+    i-side sums over the full 27-cell stencil (each pair from both of its
+    molecules, as the kernel computes it, so nothing is written into the
+    ghosts); the neighbour's image shift comes from its global x index
+    and enters after the difference, dx = (x_i − x_j) − s, as in the
+    kernel. Coulomb on all atom pairs with the Chebyshev screening fits;
+    12-6 shifted LJ on O-O only; the self tile excludes same-molecule
+    pairs."""
+    _check_slab_grid(p, "water_water_slab_plain")
+    W = p.W
+    A = 3 * W
+    R = wxh.shape[0]
+    n = wxh.shape[2] - 2
+    gy, gz = p.grid[1:]
+    dtype, dev = wxh.dtype, wxh.device
+    rc2 = rc * rc
+    consts = coulomb_constants(style, alpha, rc)
+    q_pat = np.tile(np.asarray(wm.q_pattern, np.float64), W)
+    a_idx = np.arange(A)
+    kqq_np = units.QQR2E * q_pat[:, None] * q_pat[None, :]
+    nsm = (a_idx[:, None] // 3) != (a_idx[None, :] // 3)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    kqq_nbr, kqq_self = t(kqq_np), t(kqq_np * nsm)
+    ljm_self = t(1.0 - np.eye(W))
+
+    def total(x):                                    # per-replica sum
+        return torch.sum(x.flatten(1), dim=-1)
+
+    rows_n = n * gy
+    xi4 = wxh.narrow(2, 1, n).reshape(R, 3, rows_n, gz, A)
+    f = torch.zeros((R, 3, rows_n, gz, A), dtype=dtype, device=dev)
+    fO = torch.zeros_like(f[..., 0::3])
+    e_coul = torch.zeros((R,), dtype=dtype, device=dev)
+    e_lj = torch.zeros((R,), dtype=dtype, device=dev)
+    chunks = _row_chunks((n, gy, gz), A, wxh.element_size(), R)
+    for off in _STENCIL27:
+        own = off == (0, 0, 0)
+        kqq = kqq_self if own else kqq_nbr
+        xj4 = _slab_neighbour(wxh, off, 2).reshape(R, 3, rows_n, gz, A)
+        sh4 = _roll_shift(box, p.grid, off, dtype, x_first, n).reshape(
+            R, 3, rows_n, gz, 1, 1)
+        for rows in chunks:
+            dx = ((xi4[:, :, rows, :, :, None] - xj4[:, :, rows, :, None, :])
+                  - sh4[:, :, rows])                      # (R,3,r,gz,A,A)
+            r2 = torch.clamp(dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1]
+                             + dx[:, 2] * dx[:, 2], min=R2_MIN)
+            in_rc = (r2 < rc2).to(dtype)
+            u_r, w_r, _ = _screened_coulomb(r2, style, rc, consts)
+            e_coul = e_coul + 0.5 * total(kqq * (u_r * in_rc))
+            f[:, :, rows] += torch.sum((kqq * (w_r * in_rc))[:, None] * dx,
+                                       dim=-1)
+            dxo = dx[..., 0::3, 0::3]                     # O-O block
+            r2o = torch.clamp(dxo[:, 0] * dxo[:, 0] + dxo[:, 1] * dxo[:, 1]
+                              + dxo[:, 2] * dxo[:, 2], min=R2_MIN)
+            in_rco = (r2o < rc2).to(dtype)
+            if own:
+                in_rco = ljm_self * in_rco
+            inv_r2 = 1.0 / r2o
+            inv_r6 = inv_r2 * inv_r2 * inv_r2
+            e_lj = e_lj + 0.5 * total(
+                ((wm.c12_OO * inv_r6 - wm.c6_OO) * inv_r6 - wm.eshift_OO)
+                * in_rco)
+            fO[:, :, rows] += torch.sum(
+                ((12.0 * wm.c12_OO * inv_r6 - 6.0 * wm.c6_OO) * inv_r6
+                 * inv_r2 * in_rco)[:, None] * dxo, dim=-1)
+    f[..., 0::3] += fO
+    return e_lj, e_coul, f.reshape(R, 3, n, gy, gz, A)
 
 
 # -- the full-tally water-water kernel (K2) ---------------------------------
@@ -598,9 +712,10 @@ _STENCIL27 = tuple((ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
 
 @replica_batched(5)
 def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
-                            style, alpha, rc):
+                            style, alpha, rc, x_first=None):
     """Plain PyTorch version of the full-tally water-water kernel (the
-    TPU kernel pallas_ww.make_ww_kernel; CUDA csrc/ww_tally.cu).
+    TPU kernel pallas_ww.make_ww_kernel; CUDA csrc/ww_tally.cu), on the
+    whole grid or on a rank's x-slab.
 
     wt: packed tiles (gx, gy, gz, 8, A) (pack_water_tiles); box (3,).
     Returns out (gx, gy, gz, 8, A): per slot force x, y, z, eatom_lj,
@@ -609,27 +724,39 @@ def water_water_tally_plain(wt, box, wm: WaterModel, p: TileParams, *,
     validity weights, and on the self offset the same-molecule mask;
     masked pairs are pushed to r² = rc² + 1 before 1/r²; LJ on O rows by
     mask; Coulomb with the Abramowitz–Stegun erfc in DSF or 'cut' style.
-    Needs grid ≥ 3 per dim (the 27 offsets must be distinct cells)."""
+    Needs grid ≥ 3 per dim (the 27 offsets must be distinct cells).
+
+    With ``x_first`` (K2's slab entry), wt holds (n + 2, gy, gz, 8, A):
+    the n owned x-layers of the global grid p.grid, the first at global x
+    ``x_first``, between two ghost layers, and out is the owned cells'
+    (n, gy, gz, 8, A). The whole grid is the slab of every layer with its
+    periodic neighbours as ghosts, and runs as one: the neighbour tiles
+    are read from the slab along x (no wrap) and rolled along y and z,
+    and the per-pair min image on the global box makes the ghosts' raw
+    coordinates give the whole grid's bits. ``x_first`` places the slab
+    and does not enter the arithmetic."""
     if min(p.grid) < 3:
         raise ValueError("the full-tally water-water kernel needs grid >= 3 "
                          "per dim; use tiled.forces.water_water")
+    if x_first is None:              # the whole grid: its x wrap as ghosts
+        wt = torch.cat([wt[:, -1:], wt, wt[:, :1]], dim=1)
     A = 3 * p.W
     rc2 = rc * rc
     dtype, dev = wt.dtype, wt.device
     e_sh, f_sh, _, _ = coulomb_constants(style, alpha, rc)
     _, _, not_same_mol = _water_patterns(wm, p.W, dtype, dev)
-    gx, gy, gz = p.grid
     R = wt.shape[0]
+    n = wt.shape[1] - 2
+    gy, gz = p.grid[1:]
     bx = _box_dims(box, 5)
     inv_l = _box_dims(1.0 / box, 5)
-    wt4 = wt.reshape(R, gx * gy, gz, 8, A)
-    out = torch.zeros_like(wt)
-    out4 = out.view(R, gx * gy, gz, 8, A)
-    chunks = _row_chunks(p.grid, A, wt.element_size(), R)
+    wt4 = wt.narrow(1, 1, n).reshape(R, n * gy, gz, 8, A)
+    out = torch.zeros((R, n, gy, gz, 8, A), dtype=dtype, device=dev)
+    out4 = out.view(R, n * gy, gz, 8, A)
+    chunks = _row_chunks((n, gy, gz), A, wt.element_size(), R)
     slots = _slot_chunks(chunks, R, gz, A, wt.element_size(), dev)
     for k, off in enumerate(_STENCIL27):
-        tile4 = torch.roll(wt, tuple(-o for o in off),
-                           dims=(1, 2, 3)).reshape(R, gx * gy, gz, 8, A)
+        tile4 = _slab_neighbour(wt, off, 1).reshape(R, n * gy, gz, 8, A)
         for rows in chunks:
             for i in slots:
                 out4[:, rows, ..., :6, i] += _tally_block(
@@ -733,14 +860,18 @@ def water_pairs_in_cutoff_tally(wt, box, p: TileParams, rc):
 
 @replica_batched(5)
 def water_water_tally(wxg, wvalid, wm: WaterModel, p: TileParams, box, *,
-                      style, alpha, rc):
+                      style, alpha, rc, x_first=None):
     """The full-tally water-water block through K2 (the counterpart of
     the JAX package's ``pallas_ww.water_water_pallas``, a drop-in for
     :func:`water_water` at grid ≥ 3): packs the tiles, launches the CUDA
     kernel for a CUDA tensor or runs the plain version for a CPU tensor,
-    and returns (e_lj, e_coul, f (3, gx, gy, gz, A), eatom, phi)."""
+    and returns (e_lj, e_coul, f (3, gx, gy, gz, A), eatom, phi). With
+    ``x_first``, K2's slab entry: wxg (3, n + 2, gy, gz, A) and wvalid
+    (n + 2, gy, gz, W) hold a rank's n owned x-layers between two ghost
+    layers, and the outputs are the owned cells', the energies counting
+    each pair with an owned atom half."""
     wt = pack_water_tiles(wxg, wvalid, wm, p)
-    kw = dict(style=style, alpha=alpha, rc=rc)
+    kw = dict(style=style, alpha=alpha, rc=rc, x_first=x_first)
     if wt.is_cuda:
         out = cuda_ww.water_water_tally_cuda(wt, box, wm, p, **kw)
     elif wt.device.type == "cpu":

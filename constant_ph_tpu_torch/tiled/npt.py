@@ -56,7 +56,10 @@ def _check_npt_kspace(eng: TiledEngine) -> None:
     cfg.kspace_live_box derives the influence function, spacing and volume
     from the state box (ops/pme.py), so U(s·x, s·box) is exact. Baked-box
     k-space params would evaluate the scaled configuration with a stale
-    influence function — refuse."""
+    influence function — refuse. The barostat is not ported to x-slabs
+    (its molecule scaling and counts read the whole grid): refuse them."""
+    if eng.slab is not None:
+        raise NotImplementedError("the MC barostat on x-slabs is not ported")
     if eng.kspace_ep is None:
         return
     if not eng.cfg.kspace_live_box:

@@ -27,7 +27,6 @@ import torch
 
 from constant_ph_tpu.engine import EngineConfig as JConfig
 from constant_ph_tpu.tiled.engine import TiledEngine as JEngine
-from constant_ph_tpu_torch import metad
 from constant_ph_tpu_torch.engine import EngineConfig
 from constant_ph_tpu_torch.tiled.engine import TiledEngine
 
@@ -88,10 +87,11 @@ def test_unported_paths_raise(case):
     with pytest.raises(ValueError, match="kspace_live_box requires PME"):
         TiledEngine(tts, EngineConfig(kspace_live_box=True),
                     kspace_ep=object())
-    # the cross-device hill merges wait for the multi-GPU slice
-    for merge in (metad.make_mesh_walker_merge, metad.make_mesh_group_merge):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            merge(None, "walk", metad.MetadParams())
+    # factorized Ewald on x-slabs is not ported (parallel/spatial.py; the
+    # cross-device hill merges, refused here before, are)
+    with pytest.raises(NotImplementedError, match="Ewald on x-slabs"):
+        TiledEngine(tts, EngineConfig(), kspace_ep=object(),
+                    spatial=object())
     with pytest.raises(ValueError, match="kspace_every"):
         TiledEngine(tts, EngineConfig(kspace_every=0))
 
@@ -127,10 +127,15 @@ def _imported_modules(path):
 
 def test_port_never_imports_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    paths = [os.path.join(root, "chip_smoke.py")]
+    # the spawned ranks of the multi-rank tests import tests/torch_ranks.py
+    paths = [os.path.join(root, "chip_smoke.py"),
+             os.path.join(root, "tests", "torch_ranks.py")]
     for d, _, files in os.walk(os.path.join(root, "constant_ph_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
+    for mod in ("comm", "spatial", "dryrun", "replica"):
+        assert os.path.join(root, "constant_ph_tpu_torch", "parallel",
+                            f"{mod}.py") in paths
     banned = {"jax", "jaxlib", "flax", "constant_ph_tpu"}
     n_strings = 0
     for path in paths:

@@ -14,7 +14,19 @@ wall time over the measured steps with the device synchronised before and
 after. One more block runs under torch.profiler (profiling.profile_block
 of the checkout): the device's busy ms and its operations per step.
 
+``--kernels`` times K1 (csrc/ww_pair.cu) and K2 (csrc/ww_tally.cu) on the
+PME path's relaxed tiles instead (retiled to occupancy + chip_smoke's
+PROD_MARGIN; device time from a CUDA graph of 50 calls,
+profiling.graph_ms), then measures the NVE energy drift of that state
+through K1: ``--nve-steps`` steps of velocity Verlet at dt 2 fs,
+kspace_every 2, λ moving without a thermostat, from the state with its
+velocities; h_conserved on the k-space boundary rows (h_valid), its
+least-squares slope (kcal/mol per ns) and its spread. ``--plain-drift``
+runs the same steps again with the water-water block through
+tiled.forces.water_water_fast_plain (on the card).
+
     python time_single_state.py [--root DIR] [--label NAME] [--out FILE]
+        [--kernels [--nve-steps 480] [--plain-drift]]
 
 ``--root`` imports ``constant_ph_tpu_torch`` and ``chip_smoke`` (for the
 paths' settings) from checkout DIR (default: this one), so two checkouts
@@ -59,9 +71,9 @@ def _measured(run, st, n_warm, n_meas, block):
                     device_ops_per_step=bp.ops_per_step)
 
 
-def pme_path(cs, dev, n_side=20, n_min=200, n_eq=400, n_warm=2, n_meas=10):
-    import torch
-
+def relaxed_pme(cs, dev, margin, n_side=20, n_min=200, n_eq=400):
+    """The PME path's system after FIRE and Langevin at dt 0.5 fs,
+    retiled to its occupancy + ``margin``: (system, ts, st, pme)."""
     from constant_ph_tpu_torch.engine import EngineConfig
     from constant_ph_tpu_torch.ops.pme import make_pme_params
     from constant_ph_tpu_torch.systems.water import solvated_acid
@@ -84,7 +96,17 @@ def pme_path(cs, dev, n_side=20, n_min=200, n_eq=400, n_warm=2, n_meas=10):
     st, _ = eng_eq.make_minimize(n_min)(st)
     st = eng_eq.make_run(n_eq)(st)[0]
     occ = int(st.wvalid.sum(dim=1).max())
-    ts, st = retile(ts, st, -(-(occ + 4) // 4) * 4)
+    ts, st = retile(ts, st, -(-(occ + margin) // 4) * 4)
+    return sys_, ts, st, pme
+
+
+def pme_path(cs, dev, n_warm=2, n_meas=10):
+    import torch
+
+    from constant_ph_tpu_torch.engine import EngineConfig
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+
+    sys_, ts, st, pme = relaxed_pme(cs, dev, 4)
     block = 12
     cfg = EngineConfig(dt=2.0, thermostat="langevin", T=300.0, gamma=0.002,
                        lambda_thermostat="langevin", rebuild_every=block,
@@ -154,12 +176,80 @@ def reference_path(cs, system, ts, st, n_fire=100, n_warm=2, n_meas=5):
     return res
 
 
+def _drift(run, st, n_steps, block):
+    """(h_conserved on the k-space boundary rows, their steps) over
+    n_steps of ``run`` (one call a block)."""
+    import torch
+
+    hs, steps = [], []
+    for _ in range(-(-n_steps // block)):
+        st, _, obs = run(st)
+        hs.append(obs.h_conserved[obs.h_valid])
+        steps.append(obs.h_valid.nonzero().reshape(-1) + len(steps) * block)
+    torch.cuda.synchronize()
+    return (torch.cat(hs).double().cpu().numpy(),
+            torch.cat(steps).double().cpu().numpy())
+
+
+def kernels(cs, dev, nve_steps, plain_drift):
+    """K1 and K2 device times on the PME path's relaxed tiles, and the
+    NVE drift of that state through K1 (and K1's plain version)."""
+    import numpy as np
+    import torch
+
+    from constant_ph_tpu_torch.engine import EngineConfig
+    from constant_ph_tpu_torch.profiling import graph_ms
+    from constant_ph_tpu_torch.tiled import cuda_ww, forces
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+
+    _, ts, st, pme = relaxed_pme(cs, dev, cs.PROD_MARGIN)
+    p = ts.params
+    wxg = st.wx.reshape((3,) + p.grid + (3 * p.W,)).contiguous()
+    wt = forces.pack_water_tiles(wxg, st.wvalid.reshape(p.grid + (p.W,)),
+                                 ts.water, p)
+    kw = dict(style=ts.coul_style, alpha=ts.alpha, rc=ts.cutoff)
+    res = dict(W=p.W, G=p.G,
+               k1_ms=graph_ms(lambda: forces.water_water_fast(
+                   wxg, ts.water, p, st.box, **kw), 50),
+               k2_ms=graph_ms(lambda: cuda_ww.water_water_tally_cuda(
+                   wt, st.box, ts.water, p, **kw), 50),
+               pairs_needed=int(forces.water_pairs_in_cutoff(
+                   wxg, p, st.box, ts.cutoff)))
+    if not nve_steps:
+        return res
+    cfg = EngineConfig(dt=2.0, thermostat="nve", lambda_thermostat="none",
+                       rebuild_every=12, kspace_every=2, **LAMBDA_2FS)
+    runs = [("k1", forces.water_water_fast)]
+    if plain_drift:
+        runs.append(("plain", forces.water_water_fast_plain))
+    kernel = forces.water_water_fast
+    try:
+        for name, ww in runs:
+            forces.water_water_fast = ww
+            run = TiledEngine(ts, cfg, kspace_ep=pme).make_run(
+                cfg.rebuild_every)
+            t0 = time.perf_counter()
+            h, t = _drift(run, st, nve_steps, cfg.rebuild_every)
+            slope = float(np.polyfit(t * cfg.dt * 1e-6, h, 1)[0])
+            res[f"nve_{name}"] = dict(
+                steps=nve_steps, rows=int(h.size), h_first=float(h[0]),
+                h_last=float(h[-1]), slope_kcal_per_ns=slope,
+                spread=float(h.max() - h.min()),
+                seconds=time.perf_counter() - t0)
+    finally:
+        forces.water_water_fast = kernel
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--nve-steps", type=int, default=480)
+    ap.add_argument("--plain-drift", action="store_true")
     args = ap.parse_args(argv)
     import torch
 
@@ -171,15 +261,22 @@ def main(argv=None):
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke as cs
+    import constant_ph_tpu_torch as pkg
     from constant_ph_tpu_torch.tiled import cuda_ww
 
+    if not os.path.abspath(pkg.__file__).startswith(root):
+        raise RuntimeError(f"imported {pkg.__file__}, not from {root}")
     cuda_ww.build()
     dev = "cuda"
     t0 = time.perf_counter()
-    res = dict(label=args.label, root=root)
-    res["pme"], (system, ts, st) = pme_path(cs, dev)
-    res["reference"] = reference_path(cs, system, ts, st)
-    res["hewl"] = hewl_path(cs, dev)
+    res = dict(label=args.label, root=root,
+               device=torch.cuda.get_device_name(0))
+    if args.kernels:
+        res["kernels"] = kernels(cs, dev, args.nve_steps, args.plain_drift)
+    else:
+        res["pme"], (system, ts, st) = pme_path(cs, dev)
+        res["reference"] = reference_path(cs, system, ts, st)
+        res["hewl"] = hewl_path(cs, dev)
     res["seconds"] = time.perf_counter() - t0
     line = json.dumps(res)
     print(line, flush=True)
