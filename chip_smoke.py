@@ -28,11 +28,13 @@ available or the port's package is not beside it.
    longer) in one launch of each, at W 24 and padded to W 208 (K1 3
    passes, K2 9), must give each set bitwise its own launch's forces,
    energies, tallies and pair counts.
-2. DSF path (the ``entry()`` configuration): solvated_acid (n_side=20,
-   DSF rc=8 Å, α=0.2, HMR 3, pH 5) → split_system(skin=0.8,
-   tile_safety=1.72) → 400 FIRE steps → 800 Langevin equilibration steps
-   → retile to the measured occupancy + 8 free slots (PROD_MARGIN)
-   → 2 warm-up and 5 measured
+2. DSF path (the ``entry()`` configuration; run after the PME path):
+   solvated_acid (n_side=20, DSF rc=8 Å, α=0.2, HMR 3, pH 5) →
+   split_system(skin=0.8, tile_safety=1.72) → the PME path's relaxed
+   production positions and velocities (the same atoms; the builder's λ)
+   → 48 Langevin re-equilibration steps in DSF (DSF_START) → retile to
+   the measured occupancy + 8 free slots (PROD_MARGIN) → 2 warm-up and
+   5 measured
    sync-free production blocks (dt 2 fs, rebuild_every 12, λ Langevin at
    the production driver's γ 0.05 /fs and walls ±0.12, LAMBDA_2FS).
    Gates: K1 launches equal force evaluations, no overflow, finite
@@ -94,7 +96,7 @@ available or the port's package is not beside it.
    600 (time, memory, also water×solute on the six), and a batched block
    at R = 6 and at R = 9 under torch.profiler (idle share, device ops).
 6. NPT phase on the PME production state: tiled.npt.npt_elastic_run at 1
-   atm with the live-box PME, 4 chunks of 48 steps at the PME path's
+   atm with the live-box PME, 2 chunks of 48 steps at the PME path's
    settings (dt 2 fs) with an MC volume move after each, and
    make_pressure_fn once. Gates: K1 launches
    equal force evaluations (2 a move), the box within the ±4 % drift
@@ -105,7 +107,7 @@ available or the port's package is not beside it.
 7. hewl phase: configs/hewl_like.json (solvated_polypeptide, 20,241
    atoms, 16 sites, grid 4³, W 208) as the JAX CLI's tiled run drives it:
    400 FIRE steps at W 208 (K1 in passes), 800 relaxation steps, then
-   tiled.elastic.elastic_run at W 208 in 4 chunks of 120 steps (the
+   tiled.elastic.elastic_run at W 208 in 4 chunks of 60 steps (the
    config's 5,000 steps in chunks of 2,000, cut in depth) with a DCD
    frame a chunk, JSONL observables, a checkpoint (state and generator)
    after chunk 2 and chunks 3-4 run twice, in memory and from the file:
@@ -114,10 +116,10 @@ available or the port's package is not beside it.
 8. CLI phase (``cli_path``, after the hewl phase): the port's command
    line in-process (cli.main), files in a temporary directory, depth cut
    through derived configs: (a) ``run`` on configs/hewl_like.json (20,241
-   atoms, W 208, K1 in 3 passes): 100 FIRE steps, 240 steps with a DCD
-   frame every 120, JSONL and a checkpoint, every chunk under
+   atoms, W 208, K1 in 3 passes): 100 FIRE steps, 120 steps with a DCD
+   frame every 60, JSONL and a checkpoint, every chunk under
    elastic_run's check_sync (no host sync inside a chunk), then
-   ``run`` from that checkpoint for 120 steps without FIRE (it must
+   ``run`` from that checkpoint for 60 steps without FIRE (it must
    start at the saved step, with the saved generator); (b) the same
    system written as a LAMMPS deck and λ-site sidecar, read back by the
    native reader with native exclusions, held to the builder's system at
@@ -197,7 +199,23 @@ available or the port's package is not beside it.
    compute_Hs once through K2's slab entry (TOL_HS_REL); both slab
    entries against their plain versions (water_water_slab_plain and
    water_water_tally_plain with x_first) and their owned rows bitwise
-   the whole grid's launch, each timed (``slab_ms``).
+   the whole grid's launch, each timed (``slab_ms``). Then FIRE, NPT and
+   Ewald on slabs (``slab_paths``, run alike on slabs and in the
+   parent), each from the same state and held to the single-process
+   run: world 1 bitwise, world 2 at the bars below.
+   ``[spatial fire]``: make_minimize of 2 blocks (energy history rtol
+   2e-5, positions 1e-4 Å). ``[spatial npt]``: 2 MC moves with fixed
+   uniforms on PME over the live box, every rank the same decisions and
+   boxes (boxes rtol 1e-6 of the single process's), one pressure (rtol
+   2e-3, atol 5 atm), and one chunk of npt_elastic_run(spatial=) with its
+   move (TOL_SPATIAL_RUN). ``[spatial ewald]``: a tiled Ewald engine
+   (make_ewald_params at the state's box, α 0.30, accuracy 1e-5; λ held
+   at its end state, as the tiled Ewald path holds it): one
+   force evaluation (forces 1e-5 of max, energies rtol 2e-5), a 12-step
+   block (TOL_SPATIAL_RUN) and compute_Hs through K2's slab entry
+   against the whole grid's K2 (rtol 2e-5). Each line carries the
+   phase's K1/K2 launches (slab entries on every force evaluation),
+   ms/step, and the collectives a step with their bytes.
 
 With PME the uncalibrated acid's λ sits against its upper wall near
 1.07, where its titratable H (no LJ) is negative and can fuse with a
@@ -919,6 +937,9 @@ LAMBDA_2FS = dict(lambda_gamma=0.05, lam_min=-0.12, lam_max=1.12)
 # at 4, the PME production at LAMBDA_2FS filled a cell to W - 1 (rebin's
 # capacity flag) within its 144 steps
 PROD_MARGIN = 8
+# the DSF path from the PME path's production state (the same atoms,
+# thermal at ~326 K): no FIRE, a 48-step re-equilibration in DSF
+DSF_START = dict(n_min=0, n_eq=48)
 # bound on T_lam_mean, the production mean of the one site's
 # instantaneous λ temperature: 10 T. One degree of freedom is
 # heavy-tailed (JAX at LAMBDA_2FS on a 3,001-atom box: mean 565-617 K,
@@ -972,13 +993,18 @@ def interior_lambda(st):
 
 
 def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
-            profile=False):
+            profile=False, start=None):
     """One MD path through the port's entry points at the bench size:
     build → minimise → equilibrate (kspace_every 1) → retile → warm-up and
-    measured production blocks (kspace_every 2 with PME). The launch
-    counters are zeroed just before the run and read just after; every
-    force evaluation must have gone through K1. Smaller sizes only serve
-    a rehearsal on the CPU. Returns the run's objects and numbers."""
+    measured production blocks (kspace_every 2 with PME). With ``start``
+    (another path's (ts, st) of the same system) the built system takes
+    that state's positions and velocities, its λ the builder's, and
+    ``n_min`` may be 0. The launch counters are zeroed just before the
+    run and read just after; every force evaluation must have gone
+    through K1. Smaller sizes only serve a rehearsal on the CPU. Returns
+    the run's objects and numbers."""
+    import dataclasses
+
     import torch
 
     from constant_ph_tpu_torch import units
@@ -987,13 +1013,17 @@ def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
     from constant_ph_tpu_torch.systems.water import solvated_acid
     from constant_ph_tpu_torch.tiled.engine import TiledEngine
     from constant_ph_tpu_torch.tiled.layout import (
-        retile, split_system, to_tiled)
+        retile, split_system, to_canonical, to_tiled)
 
     t0 = time.perf_counter()
     sys_ = solvated_acid(n_side=n_side, rigid_water=True, lambda_coupled=True,
                          hmr=3.0, pH=5.0, device=dev, **PAIR[kind])
     ts = split_system(sys_, skin=0.8, tile_safety=1.72, device=dev)
-    st = to_tiled(ts, sys_.state)
+    state = sys_.state
+    if start is not None:
+        relaxed = to_canonical(*start)
+        state = dataclasses.replace(state, x=relaxed.x, v=relaxed.v)
+    st = to_tiled(ts, state)
     n_atoms = int(sys_.state.x.shape[0])
     if n_side == 20 and n_atoms != 24001:
         raise RuntimeError(f"expected 24,001 atoms, built {n_atoms}")
@@ -1016,11 +1046,12 @@ def md_path(dev, kind, n_side=20, n_min=400, n_eq=800, n_meas=20,
                           rebuild_every=eq_block, force_cap=50.0, seed=1)
     eng_eq = TiledEngine(ts, cfg_eq, kspace_ep=pme)
     t0 = time.perf_counter()
-    st, e_hist = eng_eq.make_minimize(n_min)(st)
-    torch.cuda.synchronize()
-    log(f"[{kind} minimize] {n_min} steps: E {float(e_hist[0]):.1f} -> "
-        f"{float(e_hist[-1]):.1f} kcal/mol in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if n_min:
+        st, e_hist = eng_eq.make_minimize(n_min)(st)
+        torch.cuda.synchronize()
+        log(f"[{kind} minimize] {n_min} steps: E {float(e_hist[0]):.1f} "
+            f"-> {float(e_hist[-1]):.1f} kcal/mol in "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     st, ov_eq, obs = eng_eq.make_run(n_eq)(st)
     torch.cuda.synchronize()
@@ -1720,19 +1751,19 @@ def ewald_tiled_path(ts, st, cfg, ep, n_warm=2, n_meas=5):
     eng = TiledEngine(ts, cfg2, kspace_ep=ep)
     block = cfg2.rebuild_every
     run_block = eng.make_run(block)
-    ewald_xd = tengine.ewald_recip_xd
+    ewald_sets = tengine.ewald_recip_sets
     calls = [0]
 
-    def counted(*args):
+    def counted(*args, **kw):
         calls[0] += 1
-        return ewald_xd(*args)
+        return ewald_sets(*args, **kw)
 
     # evaluations on MTS boundaries: the block start at its step counter,
     # then one after each step
     steps = [st.step_host + b * block + k
              for b in range(n_warm + n_meas) for k in range(block + 1)]
     want_calls = sum(1 for s in steps if s % 2 == 0)
-    tengine.ewald_recip_xd = counted
+    tengine.ewald_recip_sets = counted
     try:
         # -- the path: counts zeroed just before, read just after ----------
         zero_counts()
@@ -1752,7 +1783,7 @@ def ewald_tiled_path(ts, st, cfg, ep, n_warm=2, n_meas=5):
         counts = read_counts()
         # ---------------------------------------------------------------
     finally:
-        tengine.ewald_recip_xd = ewald_xd
+        tengine.ewald_recip_sets = ewald_sets
     n_steps = n_meas * block
     ms_step = wall / n_steps * 1e3
     temp = torch.cat([o.temp for o in rows])
@@ -2172,8 +2203,9 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
     run call, one K1 launch a force evaluation). Counts are zeroed just
     before the path and read just after; the run blocks never
     synchronise. Then the batched-vs-looped block and the R = 9 chunk. The
-    relaxation is the DSF and PME paths' (a 200 + 96-step one left the
-    production box above the T gate). Smaller ``build`` / depths only
+    relaxation is the PME path's (a 200 + 96-step one left the
+    production box above the T gate; with 600 steps the PME path's
+    production tripped the drift flag). Smaller ``build`` / depths only
     serve a rehearsal on the CPU. Returns the numbers."""
     import dataclasses
     import math
@@ -2515,10 +2547,10 @@ def campaign_path(dev, build=CAMPAIGN_BUILD, shape=CAMPAIGN_SHAPE, n_min=400,
 
 # configs/hewl_like.json as the JAX CLI's tiled `run` drives it
 # (constant_ph_tpu/cli.py:140-290): its build, the JAX builder's figures
-# for it, and the cut depth (chunks of 120 steps, not 2,000)
+# for it, and the cut depth (chunks of 60 steps, not 2,000)
 HEWL_CONFIG = "configs/hewl_like.json"
 HEWL_SHAPE = dict(atoms=20241, sites=16, grid=[4, 4, 4], W=208)
-HEWL_CHUNK = 120
+HEWL_CHUNK = 60
 HEWL_CHUNKS = 4
 # the relaxation the DSF and PME paths use, inserted between FIRE and
 # production: from FIRE's zero velocities the config's γ 0.002 /fs warms
@@ -2711,7 +2743,7 @@ def hewl_path(dev, config=HEWL_CONFIG, shape=HEWL_SHAPE, n_min=None,
 
 # FIRE cut to 100 steps: the CLI's runs gate on finite output, not on a
 # temperature
-CLI_HEWL = dict(n_min=100, steps=240, every=120, restart_steps=120)
+CLI_HEWL = dict(n_min=100, steps=120, every=60, restart_steps=60)
 GLU_CONFIG = "configs/glu_water.json"
 DECK_TYPES = [6, 7]          # hewl's water O and H types, 1-based
 # the reference engine's force parity of a deck-built system against its
@@ -3176,7 +3208,7 @@ def _bond_lengths(ts, st):
     return np.concatenate([d(0, 1), d(0, 2)]), d(1, 2)
 
 
-def npt_path(ts, st, pme, cfg, n_chunks=4, chunk=48, pressure_atm=1.0,
+def npt_path(ts, st, pme, cfg, n_chunks=2, chunk=48, pressure_atm=1.0,
              seed=71):
     """NPT on the PME main path's production state: npt_elastic_run at
     ``pressure_atm`` with the live-box PME (one MC move after each of
@@ -3482,7 +3514,7 @@ def settle_rc_pairs(diffs, scales, pairs, terms):
 # parent wrote (the PME production state, its TiledSystem and engine
 # settings, the campaign's merge inputs): they relax nothing.
 
-SPATIAL_BLOCKS = 2          # timed 12-step blocks after the held one
+SPATIAL_BLOCKS = 1          # timed 12-step blocks after the held one
 # owned-cell forces on slabs against the single-process evaluation: the
 # water-water rows are bitwise (each owned cell's pairs and bits are the
 # whole grid's); at world 2 the PME mesh is summed over the ranks in
@@ -3491,6 +3523,16 @@ TOL_SPATIAL_F = 1e-6
 # a block on slabs against the single-process block (the same noise):
 # float32 sums taken in another order over 12 steps, as TOL_BATCH_LOOP
 TOL_SPATIAL_RUN = dict(lam=1e-4, x=1e-3, h_rel=1e-4)
+# FIRE, NPT and Ewald on slabs (slab_paths): FIRE's energy history and
+# positions at world 2 at the bars of tests/test_spatial.py:116-135; the
+# MC moves' boxes, and the pressure at tests/test_torch_npt.py's bar;
+# the Ewald forces (of max) and energies at tests/test_torch_tiled_ewald
+# .py's; compute_Hs on the Ewald engine K2's slab entry against the whole
+# grid's K2 (the water's tallies summed over the ranks)
+SLAB_FIRE_BLOCKS = 2
+SLAB_MC_U = ((0.8, 0.2), (0.3, 0.9))      # (proposal, acceptance) a move
+TOL_SLAB = dict(fire_e_rel=2e-5, fire_x=1e-4, box_rel=1e-6, p_rel=2e-3,
+                p_abs=5.0, ewald_f=1e-5, ewald_e_rel=2e-5, hs_rel=2e-5)
 # compute_Hs on slabs (K2's slab entry) against the single-process
 # compute_Hs (the plain tally path with the exact erfc): the bar of K2
 # against K1 through compute_forces on the tally path
@@ -3598,7 +3640,8 @@ def _rank_spatial(r, n, ts, st, pme, cfg, dev):
                  lam=obs.lam),
         lam=st2.lam, sx=st2.sx, wx=st2.wx, overflow=bool(ov.any()),
         counts=counts, stats=stats, ms_per_step=ms_step,
-        HA=HA, HB=HB, hs_counts=hs_counts)
+        HA=HA, HB=HB, hs_counts=hs_counts,
+        paths=slab_paths(ts, st, pme, cfg, dev, grp))
     if dev != "cuda":               # a rehearsal: the kernels need the card
         return res
     # both slab entries against their plain versions on the halo'd tiles,
@@ -3644,6 +3687,121 @@ def _rank_spatial(r, n, ts, st, pme, cfg, dev):
     return res
 
 
+def slab_paths(ts, st, pme, cfg, dev, group=None):
+    """FIRE, NPT and Ewald from the whole-grid state ``st``: on x-slabs
+    over ``group`` (each rank shards ``st`` and returns its slab's water
+    arrays), or in one process without. ``fire``: make_minimize of
+    SLAB_FIRE_BLOCKS blocks on the PME engine. ``npt``: PME on the live
+    box, the SLAB_MC_U moves chained, make_pressure_fn once, then one
+    chunk of npt_elastic_run with its move. ``ewald``: a tiled Ewald
+    engine (make_ewald_params at the state's box) with one full force
+    evaluation and a rebuild_every block (kspace_every as ``cfg``; λ held
+    at its end state, held_lambda); ``hs``: its compute_Hs (on slabs K2's slab entry; in one process K2
+    on the whole grid, use_pallas_ww). Each phase carries its launches
+    (K1/K2, and their slab entries'), the comm.STATS of the phase, its
+    steps (FIRE steps; the chunk's and block's steps) and its ms on the
+    host clock, and ms/step (npt and ewald: of the chunk and the block
+    alone)."""
+    import dataclasses
+
+    import torch
+
+    from constant_ph_tpu_torch.ops.ewald import make_ewald_params
+    from constant_ph_tpu_torch.parallel import comm, spatial
+    from constant_ph_tpu_torch.tiled import cuda_ww
+    from constant_ph_tpu_torch.tiled.engine import TiledEngine
+    from constant_ph_tpu_torch.tiled.npt import (
+        make_mc_barostat, make_pressure_fn, npt_elastic_run)
+
+    block = cfg.rebuild_every
+
+    def own(x):
+        return (x if group is None
+                else spatial.shard_tiled_state(x, group, ts.params))
+
+    mine = own(st)
+    # Ewald holds λ at its end state, as ewald_tiled_path does (with λ
+    # moving the tiled Ewald block meets the λ-wall event's drift flag)
+    st_h, cfg_h = held_lambda(st, cfg)
+    mine_h = own(st_h)
+    out = {}
+
+    def phase(name, steps, fn):
+        _sync(dev)
+        zero_counts()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        res.setdefault("ms_per_step", ms / steps)
+        res.update(
+            steps=steps, ms=ms,
+            launches=dict(read_counts(), spatial={
+                "ww_pair": cuda_ww.water_water_cuda.spatial_launches,
+                "ww_tally": cuda_ww.water_water_tally_cuda.spatial_launches}),
+            stats={k: dict(v) for k, v in comm.STATS.items()})
+        out[name] = res
+
+    def fire():
+        eng = TiledEngine(ts, cfg, kspace_ep=pme, spatial=group)
+        st_f, e = eng.make_minimize(SLAB_FIRE_BLOCKS * block)(mine)
+        return dict(e=e, sx=st_f.sx, wx=st_f.wx)
+
+    cfg_n = dataclasses.replace(cfg, kspace_live_box=True, seed=72)
+
+    def npt():
+        eng = TiledEngine(ts, cfg_n, kspace_ep=pme, spatial=group)
+        move = make_mc_barostat(eng, pressure_atm=1.0, T=cfg.T)
+        cur, acc, boxes = mine, [], []
+        for u in SLAB_MC_U:
+            cur, a = move(cur, u=u)
+            acc.append(a)
+            boxes.append(cur.box)
+        p = make_pressure_fn(eng, T=cfg.T)(mine)
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, st_n, obs, info, stats = npt_elastic_run(
+            ts, cur, cfg_n, block, pressure_atm=1.0, chunk=block,
+            kspace_ep=pme, seed=73, spatial=group,
+            generator=torch.Generator(device=dev).manual_seed(74))
+        _sync(dev)
+        return dict(accepted=torch.stack(acc), box=torch.stack(boxes),
+                    pressure=p, e_run=obs.e_pot, h=obs.h_conserved,
+                    lam=st_n.lam, sx=st_n.sx, wx=st_n.wx, box_run=st_n.box,
+                    run_accepted=stats["accepted"], retiles=info.n_retiles,
+                    ms_per_step=(time.perf_counter() - t0) / block * 1e3)
+
+    ep = make_ewald_params(st.box.cpu().numpy(), REF_EWALD["alpha"],
+                           accuracy=REF_EWALD["accuracy"], device=dev)
+
+    def ewald():
+        eng = TiledEngine(ts, cfg_h, kspace_ep=ep, spatial=group)
+        frc = eng.compute_forces(mine_h)
+        _sync(dev)
+        t0 = time.perf_counter()
+        st_e, ov, obs = eng.make_run(block)(
+            mine_h, torch.Generator(device=dev).manual_seed(75))
+        _sync(dev)
+        return dict(fw=frc.fw, fs=frc.fs, e_pot=frc.e_pot,
+                    e_kspace=frc.e_kspace, dUdlam=frc.dUdlam,
+                    e_run=obs.e_pot, h=obs.h_conserved, lam=st_e.lam,
+                    sx=st_e.sx, wx=st_e.wx, overflow=ov,
+                    ms_per_step=(time.perf_counter() - t0) / block * 1e3)
+
+    def hs():
+        eng = TiledEngine(ts, cfg_h, kspace_ep=ep, spatial=group,
+                          use_pallas_ww=group is None)
+        HA, HB = eng.compute_Hs(mine_h)
+        return dict(HA=HA, HB=HB)
+
+    phase("fire", SLAB_FIRE_BLOCKS * block, fire)
+    phase("npt", block, npt)
+    phase("ewald", block, ewald)
+    phase("hs", 1, hs)
+    return out
+
+
 def _rank_replicas(r, n, ts, st, pme, cfg, dev):
     """The PME REX leg's block (R 4, K1, frozen bias) with the replicas
     split over the ranks."""
@@ -3671,6 +3829,150 @@ def _rank_replicas(r, n, ts, st, pme, cfg, dev):
                 accepted=accepted, h=last.h_conserved, counts=read_counts(),
                 ms_per_walker_step=wall / ((own.stop - own.start)
                                            * cfg.rebuild_every) * 1e3)
+
+
+def _slab_evals(block, ph):
+    """The force evaluations of each slab_paths phase: K1 for fire, npt
+    and ewald, K2 for hs. npt: two a move (SLAB_MC_U and the chunk's), two
+    for the pressure, a block's (its start and a step's) per run of the
+    chunk (a retile redoes it)."""
+    return dict(fire=SLAB_FIRE_BLOCKS * block,
+                npt=2 * len(SLAB_MC_U) + 2 + 2
+                + (block + 1) * (1 + ph["npt"]["retiles"]),
+                ewald=1 + block + 1, hs=1)
+
+
+def _slab_rows(n, ranks, ref, block):
+    """[spatial fire], [spatial npt] and [spatial ewald] at world n: each
+    rank's slab_paths against the single-process ``ref`` (world 1
+    bitwise, world 2 at TOL_SLAB / TOL_SPATIAL_RUN), every rank alike,
+    and the launches (the slab entries on every force evaluation).
+    Returns (rows, the names of the failed ones)."""
+    import numpy as np
+
+    sp = [o["spatial"]["paths"] for o in ranks]
+    one = n == 1
+
+    def whole(ph, k):
+        return np.concatenate([o[ph][k] for o in sp], axis=1)
+
+    def rel(a, b):
+        b = np.asarray(b, np.float64)
+        return _max_diff(a, b) / max(float(np.abs(b).max()), 1e-30)
+
+    def scaled(a, b):
+        return _max_diff(a, b) / max(1.0, float(np.abs(b).max()))
+
+    def alike(ph, keys):
+        return all(np.array_equal(o[ph][k], sp[0][ph][k])
+                   for o in sp for k in keys)
+
+    def bitwise(ph, keys, tiles=("wx",)):
+        return (all(np.array_equal(sp[0][ph][k], ref[ph][k]) for k in keys)
+                and all(np.array_equal(whole(ph, k), ref[ph][k])
+                        for k in tiles))
+
+    def comms(ph):
+        steps = sp[0][ph]["steps"]
+        return dict(
+            collectives_per_step={k: [o[ph]["stats"][k]["calls"] / steps
+                                      for o in sp]
+                                  for k in sp[0][ph]["stats"]},
+            comm_bytes_per_step=[sum(v["bytes"] for v in
+                                     o[ph]["stats"].values()) / steps
+                                 for o in sp],
+            ms_per_step=[o[ph]["ms_per_step"] for o in sp],
+            single_ms_per_step=ref[ph]["ms_per_step"],
+            launches=[o[ph]["launches"] for o in sp])
+
+    def run_diffs(ph):
+        return dict(run_lam=_max_diff(sp[0][ph]["lam"], ref[ph]["lam"]),
+                    run_x=max(_max_diff(sp[0][ph]["sx"], ref[ph]["sx"]),
+                              _max_diff(whole(ph, "wx"), ref[ph]["wx"])),
+                    run_h_rel=rel(sp[0][ph]["h"], ref[ph]["h"]))
+
+    def run_ok(row):
+        return (row["run_lam"] <= TOL_SPATIAL_RUN["lam"]
+                and row["run_x"] <= TOL_SPATIAL_RUN["x"]
+                and row["run_h_rel"] <= TOL_SPATIAL_RUN["h_rel"])
+
+    evals = _slab_evals(block, sp[0])
+
+    def launches_ok(ph, kernel):
+        want = evals[ph]
+        other = "ww_tally" if kernel == "ww_pair" else "ww_pair"
+        return all(o[ph]["launches"][kernel] == want
+                   and o[ph]["launches"]["spatial"][kernel] == want
+                   and o[ph]["launches"][other] == 0 for o in sp)
+
+    t = TOL_SLAB
+    rows, fails = {}, []
+    f = dict(world=n, evals=evals["fire"],
+             bitwise=bitwise("fire", ("e", "sx")),
+             e_rel=rel(sp[0]["fire"]["e"], ref["fire"]["e"]),
+             x=max(_max_diff(sp[0]["fire"]["sx"], ref["fire"]["sx"]),
+                   _max_diff(whole("fire", "wx"), ref["fire"]["wx"])),
+             ranks_alike=alike("fire", ("e", "sx")), **comms("fire"))
+    f["ok"] = (launches_ok("fire", "ww_pair") and f["ranks_alike"]
+               and (f["bitwise"] if one else
+                    f["e_rel"] <= t["fire_e_rel"] and f["x"] <= t["fire_x"]))
+    rows["fire"] = f
+
+    npt_keys = ("accepted", "box", "pressure", "e_run", "lam", "sx",
+                "box_run")
+    pr, p1 = float(sp[0]["npt"]["pressure"]), float(ref["npt"]["pressure"])
+    m = dict(world=n, evals=evals["npt"],
+             bitwise=bitwise("npt", npt_keys),
+             accepted=np.asarray(sp[0]["npt"]["accepted"]).tolist(),
+             accepted_single=np.asarray(ref["npt"]["accepted"]).tolist(),
+             box_rel=max(rel(sp[0]["npt"]["box"], ref["npt"]["box"]),
+                         rel(sp[0]["npt"]["box_run"],
+                             ref["npt"]["box_run"])),
+             pressure_atm=pr, pressure_single_atm=p1,
+             run_accepted=sp[0]["npt"]["run_accepted"],
+             retiles=sp[0]["npt"]["retiles"],
+             ranks_alike=alike("npt", ("accepted", "box", "box_run",
+                                       "lam", "sx")),
+             broadcasts_per_move=[o["npt"]["stats"]["broadcast"]["calls"]
+                                  / (len(SLAB_MC_U) + 1) for o in sp],
+             **run_diffs("npt"), **comms("npt"))
+    m["ok"] = (launches_ok("npt", "ww_pair") and m["ranks_alike"]
+               and m["accepted"] == m["accepted_single"]
+               and m["run_accepted"] == ref["npt"]["run_accepted"]
+               and m["retiles"] == ref["npt"]["retiles"]
+               and m["broadcasts_per_move"] == [2.0] * n
+               and (m["bitwise"] if one else
+                    m["box_rel"] <= t["box_rel"] and run_ok(m)
+                    and abs(pr - p1) <= t["p_abs"] + t["p_rel"] * abs(p1)))
+    rows["npt"] = m
+
+    ew_keys = ("fs", "e_pot", "dUdlam", "e_run", "lam", "sx")
+    e = dict(world=n, evals=evals["ewald"],
+             bitwise=(bitwise("ewald", ew_keys, ("fw", "wx"))
+                      and np.array_equal(sp[0]["hs"]["HA"], ref["hs"]["HA"])),
+             fw_scaled=scaled(whole("ewald", "fw"), ref["ewald"]["fw"]),
+             fs_scaled=scaled(sp[0]["ewald"]["fs"], ref["ewald"]["fs"]),
+             e_pot_rel=rel(sp[0]["ewald"]["e_pot"], ref["ewald"]["e_pot"]),
+             e_kspace=float(sp[0]["ewald"]["e_kspace"]),
+             HA_rel=rel(sp[0]["hs"]["HA"], ref["hs"]["HA"]),
+             HB_rel=rel(sp[0]["hs"]["HB"], ref["hs"]["HB"]),
+             overflow=any(bool(o["ewald"]["overflow"]) for o in sp),
+             ranks_alike=alike("ewald", ("fs", "e_pot", "lam", "sx")),
+             hs_launches=[o["hs"]["launches"] for o in sp],
+             **run_diffs("ewald"), **comms("ewald"))
+    e["ok"] = (launches_ok("ewald", "ww_pair") and launches_ok("hs",
+                                                                "ww_tally")
+               and e["ranks_alike"] and not e["overflow"]
+               and (e["bitwise"] if one else
+                    max(e["fw_scaled"], e["fs_scaled"]) <= t["ewald_f"]
+                    and e["e_pot_rel"] <= t["ewald_e_rel"] and run_ok(e)
+                    and max(e["HA_rel"], e["HB_rel"]) <= t["hs_rel"]))
+    rows["ewald"] = e
+    for name, row in rows.items():
+        log(f"[spatial {name}] {json.dumps(row)}")
+        if not row["ok"]:
+            fails.append(f"spatial {name} at world {n}")
+    return rows, fails
 
 
 def ranks_child(r, n, path, todo, dev):
@@ -3760,6 +4062,7 @@ def ranks_phase(ts, st, pme, cfg, rex, camp, dev="cuda", skin=0.8):
                h=obs1.h_conserved.cpu().numpy(), lam=st1.lam.cpu().numpy(),
                sx=st1.sx.cpu().numpy(), wx=st1.wx.cpu().numpy(),
                HA=float(HA1))
+    ref_paths = comm._to_host(slab_paths(ts, st_sp, pme, cfg, dev))
     try:
         runs = {}
         for n, backend, todo in ((1, "nccl" if dev == "cuda" else "gloo",
@@ -3774,7 +4077,8 @@ def ranks_phase(ts, st, pme, cfg, rex, camp, dev="cuda", skin=0.8):
                 f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    res = dict(merge={}, spatial={}, single_ms_per_step=ms_single)
+    res = dict(merge={}, spatial={}, slab_paths={},
+               single_ms_per_step=ms_single)
     fails = []
 
     # [mesh merge]: every rank the same tables, within the JAX package's
@@ -3897,6 +4201,8 @@ def ranks_phase(ts, st, pme, cfg, rex, camp, dev="cuda", skin=0.8):
               and row["k1_rows_bitwise"] and row["k2_rows_bitwise"])
         if not ok:
             fails.append(f"spatial at world {n}")
+        res["slab_paths"][n], more = _slab_rows(n, runs[n], ref_paths, block)
+        fails += more
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[ranks] {res['seconds']:.1f} s")
     if fails:
@@ -3919,12 +4225,15 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     kernel_phase(dev)
-    # the DSF path keeps the bench's relaxation (shorter ones leave the
-    # box above 400 K) and measures a quarter of the blocks, the PME path
-    # half, so the campaign phase fits the script's time
-    dsf = md_path(dev, "dsf", n_meas=5)
-    dsf["checks"].append(check_ww(dsf["ts"], dsf["st"], "dsf-production-tiles"))
+    # the PME path relaxes from the build (400 FIRE + 800 steps: after
+    # 600 its production tripped the drift flag) and measures half the
+    # blocks; the DSF path, the same system in DSF, starts from its
+    # relaxed state (DSF_START) and measures a quarter: depth cut so that
+    # the script keeps well inside its time limit
     pme = md_path(dev, "pme", n_meas=10, profile="--profile" in sys.argv[1:])
+    dsf = md_path(dev, "dsf", n_meas=5, start=(pme["ts"], pme["st"]),
+                  **DSF_START)
+    dsf["checks"].append(check_ww(dsf["ts"], dsf["st"], "dsf-production-tiles"))
     ts, st = pme["ts"], pme["st"]
     check_pme_on_cpu(ts, st, pme["pme"])
     # the tally and tiled Ewald paths hold λ at its end state
@@ -3959,6 +4268,18 @@ def main():
     # campaign's merge inputs: world 1 over nccl, world 2 over gloo
     ranks = ranks_phase(ts, st, pme["pme"], pme["cfg"], rex, camp)
     sp1, sp2 = ranks["spatial"][1], ranks["spatial"][2]
+    # the slab entries' launches of every spatial path on rank 0: the
+    # [spatial] evaluation and block (K1) and compute_Hs (K2), then FIRE,
+    # NPT and Ewald (K1) and the Ewald engine's compute_Hs (K2)
+    slab_k1, slab_k2 = {}, {}
+    for n, sp in ((1, sp1), (2, sp2)):
+        rows = ranks["slab_paths"][n]
+        slab_k1[n] = dict(run=sp["launches"][0]["spatial"]["ww_pair"],
+                          **{ph: rows[ph]["launches"][0]["spatial"]["ww_pair"]
+                             for ph in ("fire", "npt", "ewald")})
+        slab_k2[n] = dict(
+            hs=sp["hs_counts"][0]["spatial"],
+            ewald_hs=rows["ewald"]["hs_launches"][0]["spatial"]["ww_tally"])
     hewl = hewl_path(dev)
     k1h, k2h, k1o = hewl["k1"], hewl["k2"], hewl["k1_occ"]
     cli = cli_path(dev)
@@ -4017,11 +4338,13 @@ def main():
              cli_launches=cli["launches"]["run"],
              deck_launches=cli["launches"]["deck"],
              # the slab entry on the PME production tiles: launches of
-             # the spatial path (one force evaluation and a 12-step block)
-             # on rank 0 at world 2 (3 owned x-layers) and at world 1,
-             # and its device time there (CUDA graph)
-             spatial_launches=sp2["launches"][0]["spatial"]["ww_pair"],
-             spatial_w1_launches=sp1["launches"][0]["spatial"]["ww_pair"],
+             # the spatial paths (one force evaluation and a 12-step
+             # block, FIRE, NPT, Ewald) on rank 0 at world 2 (3 owned
+             # x-layers) and at world 1, and its device time there (CUDA
+             # graph)
+             spatial_launches=sum(slab_k1[2].values()),
+             spatial_w1_launches=sum(slab_k1[1].values()),
+             spatial_path_launches=slab_k1[2],
              slab_ms=sp2["slab_ms"][0]["ww_pair"],
              slab_w1_ms=sp1["slab_ms"][0]["ww_pair"],
              # the PME REX block with its replicas split over 2 ranks
@@ -4053,11 +4376,13 @@ def main():
              hewl_bound_ms=k2h["bound_ms"],
              hewl_pairs_needed=k2h["pairs_needed"],
              hewl_pairs_evaluated=k2h["pairs_evaluated"],
-             # the slab entry once through compute_Hs on rank 0 at world 2
-             # and at world 1, and its device time on the 3 (6) owned
-             # x-layers of the PME production tiles
-             spatial_launches=sp2["hs_counts"][0]["spatial"],
-             spatial_w1_launches=sp1["hs_counts"][0]["spatial"],
+             # the slab entry through compute_Hs on the PME and the Ewald
+             # engine on rank 0 at world 2 and at world 1, and its device
+             # time on the 3 (6) owned x-layers of the PME production
+             # tiles
+             spatial_launches=sum(slab_k2[2].values()),
+             spatial_w1_launches=sum(slab_k2[1].values()),
+             spatial_path_launches=slab_k2[2],
              slab_ms=sp2["slab_ms"][0]["ww_tally"],
              slab_w1_ms=sp1["slab_ms"][0]["ww_tally"])]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

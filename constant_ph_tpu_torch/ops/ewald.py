@@ -17,6 +17,11 @@ C = QQR2E over a sphere of k; the half space is kept with doubled weights
 background −C·π/(2α²V)(Σq)² are included; the real-space erfc part and
 the excluded-pair compensation live in ops.pair (pp.alpha > 0). The box
 is the one the tables were built for (no NPT).
+
+``ewald_recip_sets`` takes the atoms as sets that share one S(k) (the
+tiled engine's water slots and solute atoms), so that on x-slabs the
+water's S(k), Σq and Σq² are summed over the ranks before the solute's,
+which every rank holds alike, are added once.
 """
 from __future__ import annotations
 
@@ -112,17 +117,49 @@ def ewald_recip(x, q, ep: EwaldParams):
 
 
 def ewald_recip_xd(xd, q, ep: EwaldParams):
-    """ewald_recip on a tuple of 3 per-dimension (N,) coordinate arrays
-    (the tiled path's layout); forces come back as a per-dimension
-    tuple. Coordinates and charges may carry leading replica axes, (…, N):
-    energies are then (…,), one a replica."""
+    """ewald_recip on a tuple of 3 per-dimension (N,) coordinate arrays;
+    forces come back as a per-dimension tuple. Coordinates and charges may
+    carry leading replica axes, (…, N): energies are then (…,), one a
+    replica."""
+    e, ((f, phi, eatom),) = ewald_recip_sets([(xd, q)], ep)
+    return e, f, phi, eatom
+
+
+def ewald_recip_sets(sets, ep: EwaldParams, reduce=None):
+    """ewald_recip over atom sets that share one structure factor: each
+    of ``sets`` an (xd, q) pair as ewald_recip_xd takes them. S(k), Σq and
+    Σq² are summed over the sets; the first set's pass through ``reduce``
+    first (on x-slabs the all-reduce over the ranks, each rank holding its
+    own water slots as the first set), then the other sets', which every
+    rank holds alike, are added once. Returns (E, [(F tuple, φ, eatom) of
+    each set]): the energy, and each set's forces, φ and tallies from the
+    whole S(k)."""
+    phs = [_phases(xd, ep) for xd, _ in sets]
+    sums = []
+    for (_, q), ph in zip(sets, phs):
+        sr, si = _structure_factor(q, ph)
+        sums.append([sr, si, torch.sum(q, dim=-1), torch.sum(q * q, dim=-1)])
+    if reduce is not None:
+        sums[0] = list(reduce(*sums[0]))
+    sr, si, qsum, q2sum = sums[0]
+    for more in sums[1:]:
+        sr, si, qsum, q2sum = (a + b for a, b in zip((sr, si, qsum, q2sum),
+                                                      more))
+    return (_energy(sr, si, qsum, q2sum, ep),
+            [_atom_terms(q, ph, sr, si, qsum, ep)
+             for (_, q), ph in zip(sets, phs)])
+
+
+def _phases(xd, ep: EwaldParams):
+    """The per-dimension phase factors of coordinates xd (…, N):
+    (exr, exi) (…, N, Mx) and T1 = Ey ⊙ Ez, (t1r, t1i) (…, N, My·Mz)."""
     (exr, exi), (eyr, eyi), (ezr, ezi) = (
         (torch.cos(a), torch.sin(a))
         for a in (xd[d][..., :, None] * k
                   for d, k in enumerate((ep.kx, ep.ky, ep.kz))))
 
     # T1 = Ey ⊙ Ez by broadcast outer products, (…, N, My·Mz)
-    lead_n = q.shape
+    lead_n = xd[0].shape
     My, Mz = eyr.shape[-1], ezr.shape[-1]
     t1r = (eyr[..., :, None] * ezr[..., None, :]
            - eyi[..., :, None] * ezi[..., None, :]).reshape(
@@ -130,7 +167,13 @@ def ewald_recip_xd(xd, q, ep: EwaldParams):
     t1i = (eyr[..., :, None] * ezi[..., None, :]
            + eyi[..., :, None] * ezr[..., None, :]).reshape(
                lead_n + (My * Mz,))
+    return exr, exi, t1r, t1i
 
+
+def _structure_factor(q, ph):
+    """S(k) = (sr, si), (…, Mx, My·Mz), of charges q (…, N) at phases
+    ph."""
+    exr, exi, t1r, t1i = ph
     # S[nx, yz] = Σ_i q_i Ex[i,nx] T1[i,yz], with the Mx-side operands
     # stacked so each (N, My·Mz) array is read once a matmul
     Mx = exr.shape[-1]
@@ -140,10 +183,25 @@ def ewald_recip_xd(xd, q, ep: EwaldParams):
     sr_si_i = qex.transpose(-1, -2) @ t1i
     sr = sr_si_r[..., :Mx, :] - sr_si_i[..., Mx:, :]
     si = sr_si_i[..., :Mx, :] + sr_si_r[..., Mx:, :]
+    return sr, si
 
+
+def _energy(sr, si, qsum, q2sum, ep: EwaldParams):
+    """Reciprocal + self + background energy from S(k), Σq and Σq²."""
+    e_rec = torch.sum(ep.A * (sr * sr + si * si), dim=(-2, -1))
+    C = units.QQR2E
+    e_self = -C * ep.alpha / _SQRT_PI * q2sum
+    e_bg = -C * np.pi / (2.0 * ep.alpha**2 * ep.volume) * qsum * qsum
+    return e_rec + e_self + e_bg
+
+
+def _atom_terms(q, ph, sr, si, qsum, ep: EwaldParams):
+    """Forces (a per-dimension tuple), φ and the per-atom tally of the
+    atoms at phases ph with charges q, from the whole S(k) and Σq."""
+    exr, exi, t1r, t1i = ph
+    Mx = exr.shape[-1]
+    My, Mz = ep.ky.shape[0], ep.kz.shape[0]
     A = ep.A
-    e_rec = torch.sum(A * (sr * sr + si * si), dim=(-2, -1))
-
     # G = A·conj(S) and its k_y-, k_z-weighted variants in one operand;
     # k_x folds into the Ex contraction afterwards
     ky_yz = torch.repeat_interleave(ep.ky, Mz)     # (MyMz,), ij order
@@ -168,14 +226,11 @@ def ewald_recip_xd(xd, q, ep: EwaldParams):
     wzr, wzi = w_pair(4)
     fz = 2.0 * q * torch.sum(exr * wzi + exi * wzr, dim=-1)
 
-    # self energy + neutralising background
+    # the self and neutralising-background terms of φ
     C = units.QQR2E
-    qsum = torch.sum(q, dim=-1)
-    e_self = -C * ep.alpha / _SQRT_PI * torch.sum(q * q, dim=-1)
-    e_bg = -C * np.pi / (2.0 * ep.alpha**2 * ep.volume) * qsum * qsum
     phi = phi - 2.0 * C * ep.alpha / _SQRT_PI * q \
         - C * np.pi / (ep.alpha**2 * ep.volume) * qsum[..., None]
-    return e_rec + e_self + e_bg, (fx, fy, fz), phi, 0.5 * q * phi
+    return (fx, fy, fz), phi, 0.5 * q * phi
 
 
 def make_kspace_fn(ep: EwaldParams):

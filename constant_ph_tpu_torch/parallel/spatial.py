@@ -15,20 +15,34 @@ across shards become collective permutes); here the engine
   between the two ghost layers. Both sum every pair on the i side, so
   nothing is sent back for water-water;
 - one all-reduce of the water-derived energies, the solute's forces and
-  φ from water (and through them dU/dλ), one of the PME mesh, one of the
-  water kinetic energy where a temperature or a thermostat's work needs
-  it; solute-solute and bonded terms run on the replicated solute on
-  every rank, outside the sums;
+  φ from water (and through them dU/dλ), one of the PME mesh or of the
+  water's Ewald structure factor, one of the water kinetic energy where
+  a temperature or a thermostat's work needs it; solute-solute and
+  bonded terms run on the replicated solute on every rank, outside the
+  sums;
 - one all-gather of the tiles a ``rebuild_every`` block (``rebin_slab``):
   every rank rebins the whole grid identically (layout.rebin) and keeps
-  its slab; the tiles are never gathered inside a block;
+  its slab; the tiles are never gathered inside a block, except below 3
+  cells a dimension: there the plain tally path (tiled.forces.water_water)
+  needs the whole grid for its minimum image, so a force evaluation
+  gathers the coordinates and validity once (``gather_cells``), every
+  rank computes the water terms of the whole grid and keeps its own rows
+  (tiled.layout.make_tile_params gives such boxes one cell, which only
+  one rank divides; a grid of 2 comes from TileParams made by hand);
 - Langevin noise drawn for the whole tile array from generators that are
   the same on every rank, each rank keeping its slab (``slab_randn``):
   the replicated solute and λ advance bitwise alike on every rank, and a
   slab run follows the single-process run.
 
-Requirements: an initialised process group, grid[0] divisible by the
-ranks, the global grid ≥ 3 cells per dim (the kernels' stencil).
+Every TiledEngine path runs on slabs: the run loop, FIRE (its water sums
+in one all-reduce a step), the MC barostat and the pressure
+(tiled/npt.py: molecule counts summed, the accept decision's inputs
+broadcast from rank 0), the elastic drivers (a retile gathers the tiles,
+retiles the whole grid on every rank alike and shards again;
+``gather_state`` gives an ``on_chunk`` writer the whole grid), and PME
+or factorized Ewald k-space (the water's mesh or structure factor summed
+over the ranks). Requirements: an initialised process group and a grid
+x dimension that the ranks divide.
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from constant_ph_tpu_torch.batching import state_batched
 from constant_ph_tpu_torch.integrators import replica_randn
 from constant_ph_tpu_torch.parallel import comm
 from constant_ph_tpu_torch.tiled.layout import TiledState, TileParams, rebin
@@ -76,9 +91,6 @@ def slab_of(group, params: TileParams) -> Slab:
     if gx % n:
         raise ValueError(f"grid x dimension {gx} not divisible by the "
                          f"{n} ranks")
-    if min(params.grid) < 3:
-        raise ValueError("the slab decomposition needs the global grid "
-                         ">= 3 cells per dim (the kernels' stencil)")
     k = gx // n
     return Slab(group=group, world=n, x_first=r * k, n=k,
                 cells=slice(r * k * gy * gz, (r + 1) * k * gy * gz))
@@ -102,44 +114,50 @@ def shard_tiled_state(tstate: TiledState, group,
         for k in ("wx", "wv", "wvalid", "wid")})
 
 
-def _pack_tiles(st: TiledState):
-    """A batch's tiles as one float32 block a replica: wx, wv, wvalid and
-    wid (its int32 bits) — what a gather of the whole grid moves."""
-    R = st.wx.shape[0]
-    return torch.cat([st.wx.reshape(R, -1), st.wv.reshape(R, -1),
-                      st.wvalid.reshape(R, -1),
-                      st.wid.contiguous().view(torch.float32).reshape(R, -1)],
-                     dim=1)
+def gather_cells(parts, slab: Slab):
+    """The whole grid of each (R, …) tensor of a batch's slab, gathered
+    from every rank in one all-gather: ``parts`` holds (tensor, cell axis)
+    pairs, the cell axis the one that runs over the owned cells (G, or x
+    in grid shape); each comes back with the ranks' cells in rank order
+    along that axis. Tensors of 4-byte types travel as float32 bits."""
+    R = parts[0][0].shape[0]
+    flat = torch.cat([t.contiguous().view(torch.float32).reshape(R, -1)
+                      for t, _ in parts], dim=1)
+    got = comm.all_gather(flat, slab.group)               # (n, R, k)
+    out, at = [], 0
+    for t, axis in parts:
+        k = t[0].numel()
+        loc = got[:, :, at:at + k].reshape((slab.world,) + tuple(t.shape))
+        out.append(torch.cat(list(loc), dim=axis).view(t.dtype))
+        at += k
+    return out
 
 
+@state_batched
 def gather_tiles(st: TiledState, slab: Slab, params: TileParams):
-    """The whole grid's tiles of a batch on a slab, gathered from every
-    rank in one all-gather: the state with (R, 3, G, 3W) / (R, G, W)
+    """The whole grid's tiles of a state (or batch) on a slab, gathered
+    from every rank in one all-gather: the state with (3, G, 3W) / (G, W)
     tiles (every other field as it is)."""
-    R = st.wx.shape[0]
-    G, W = params.G, params.W
-    Gl = slab.cells.stop - slab.cells.start
-    parts = comm.all_gather(_pack_tiles(st), slab.group)  # (n, R, k)
-    sizes = [3 * Gl * 3 * W, 3 * Gl * 3 * W, Gl * W, Gl * W]
-    cols = torch.split(parts, sizes, dim=2)
-
-    def whole(c, shape_l, cell_axis):
-        # (n, R, *local) → cells of the ranks in order along cell_axis
-        loc = c.reshape((slab.world, R) + shape_l)
-        return torch.cat(list(loc), dim=cell_axis)
-
-    wx = whole(cols[0], (3, Gl, 3 * W), 2)
-    wv = whole(cols[1], (3, Gl, 3 * W), 2)
-    wvalid = whole(cols[2], (Gl, W), 1)
-    wid = whole(cols[3].contiguous(), (Gl, W), 1).view(st.wid.dtype)
-    assert wx.shape[2] == G
-    return dataclasses.replace(st, wx=wx, wv=wv, wvalid=wvalid, wid=wid)
+    names = ("wx", "wv", "wvalid", "wid")
+    whole = gather_cells([(getattr(st, k), _cell_axis(k)) for k in names],
+                         slab)
+    assert whole[0].shape[2] == params.G
+    return dataclasses.replace(st, **dict(zip(names, whole)))
 
 
+def gather_state(st: TiledState, group, params: TileParams) -> TiledState:
+    """The inverse of ``shard_tiled_state``: the whole grid's state (or
+    batch) on every rank of ``group``, from each rank's slab, in one
+    all-gather. Every rank calls it; checkpoint and trajectory writers
+    take its result (an elastic run's ``on_chunk`` sees the rank's slab)."""
+    return gather_tiles(st, slab_of(group, params), params)
+
+
+@state_batched
 def rebin_slab(st: TiledState, slab: Slab, params: TileParams):
-    """layout.rebin of a batch on slabs: one all-gather of the tiles, the
-    whole grid rebinned on every rank alike, the rank's slab kept. Returns
-    (state, overflow (R,)), the flag every rank's alike."""
+    """layout.rebin of a state or batch on slabs: one all-gather of the
+    tiles, the whole grid rebinned on every rank alike, the rank's slab
+    kept. Returns (state, overflow), the flag every rank's alike."""
     full, overflow = rebin(gather_tiles(st, slab, params), params)
     return dataclasses.replace(full, **{
         k: getattr(full, k).narrow(_cell_axis(k), slab.cells.start,

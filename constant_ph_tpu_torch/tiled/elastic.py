@@ -18,6 +18,15 @@ a redo, so a redo equals a run started from the chunk's start state at
 the larger W. The chunk-start state stays on the device; only a retile
 reads it back. Each chunk reads two values on the host (the capacity
 flag and the molecule count), as the JAX driver does.
+
+With ``spatial`` (a process group) the engines run on x-slabs
+(TiledEngine(spatial=group)) and the state is the rank's slab
+(parallel.spatial.shard_tiled_state). The capacity flag comes alike on
+every rank from the run's rebin; on it the tiles are gathered once, every
+rank retiles the whole grid alike and keeps its slab of the new tiles.
+The molecule count is summed over the ranks. ``on_chunk`` receives the
+rank's slab: parallel.spatial.gather_state gives the whole grid on every
+rank, for the checkpoint and trajectory writers.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 
 from constant_ph_tpu_torch.engine import Observables
 from constant_ph_tpu_torch.lambda_dyn import BiasParams
+from constant_ph_tpu_torch.parallel import spatial as spatial_mod
 from constant_ph_tpu_torch.tiled.engine import TiledEngine
 from constant_ph_tpu_torch.tiled.layout import retile_auto
 
@@ -74,10 +84,17 @@ def _run_elastic(ts, tst, cfg, n_steps, chunk, make_engine, margin_min,
         if bool(ov_cap):
             # capacity: grow W and REDO the chunk from its (complete)
             # start state with the chunk's noise; the early flag
-            # guarantees nothing was lost
-            occ = int(tst.wvalid.sum(dim=1).max())
-            ts, tst = retile_auto(ts, tst, max(occ, ts.params.W),
+            # guarantees nothing was lost. On slabs the whole grid is
+            # retiled on every rank alike and sharded again
+            full = tst
+            if eng.slab is not None:
+                full = spatial_mod.gather_tiles(tst, eng.slab, ts.params)
+            occ = int(full.wvalid.sum(dim=-1).max())
+            ts, tst = retile_auto(ts, full, max(occ, ts.params.W),
                                   margin_min=margin_min)
+            if eng.slab is not None:
+                tst = spatial_mod.shard_tiled_state(tst, eng.slab.group,
+                                                    ts.params)
             gen.set_state(g0)
             eng = make_engine(ts)
             run = eng.make_run(chunk, detailed_flags=True)
@@ -90,7 +107,7 @@ def _run_elastic(ts, tst, cfg, n_steps, chunk, make_engine, margin_min,
             info.n_dangerous_blocks += 1
         tst = tst2
         done += chunk
-        assert int(tst.wvalid.sum()) == n_waters, \
+        assert int(eng.slab_total(tst.wvalid.sum())) == n_waters, \
             "molecule count changed — capacity invariant violated"
         parts.append(obs)
         if on_chunk is not None:
@@ -104,7 +121,7 @@ def _run_elastic(ts, tst, cfg, n_steps, chunk, make_engine, margin_min,
 def elastic_run(ts, tst, cfg, n_steps: int, *, chunk: int = 2000,
                 bias=None, kspace_ep=None, margin_min: int = 6,
                 on_chunk: Optional[Callable] = None, generator=None,
-                check_sync: bool = False):
+                check_sync: bool = False, spatial=None):
     """Run ``n_steps`` of tiled MD with elastic tile capacity.
 
     on_chunk(step_count, ts, tst, obs) is called after every completed
@@ -113,14 +130,17 @@ def elastic_run(ts, tst, cfg, n_steps: int, *, chunk: int = 2000,
     ``check_sync`` each chunk runs under torch.cuda.set_sync_debug_mode
     ("error"): a host sync inside a chunk raises (a check for the card).
     Returns (ts, tst, obs_concat, ElasticInfo). Retiling keeps the cell
-    grid, so PME params remain valid across retiles."""
+    grid, so PME params remain valid across retiles. With ``spatial`` (a
+    process group, parallel.spatial.make_spatial_mesh) every rank calls it
+    with its slab of the state and gets its slab back; ``on_chunk`` sees
+    the slab (parallel.spatial.gather_state gives the whole grid)."""
     # make_run(chunk) runs ceil(chunk / rebuild_every) whole blocks: round
     # the chunk up so `done` counts real steps
     chunk = -(-chunk // cfg.rebuild_every) * cfg.rebuild_every
 
     def make_engine(ts_):
         return TiledEngine(ts_, cfg, bias=bias or BiasParams(),
-                           kspace_ep=kspace_ep)
+                           kspace_ep=kspace_ep, spatial=spatial)
 
     return _run_elastic(ts, tst, cfg, n_steps, chunk, make_engine,
                         margin_min, generator, on_chunk, check_sync)

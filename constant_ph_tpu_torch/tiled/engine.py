@@ -44,9 +44,14 @@ force evaluation feeds K1's / K2's slab entries, the water-derived
 energies, solute forces, φ and the PME mesh are all-reduced, the water
 kinetic energy is all-reduced where it is used, rebinning gathers the
 tiles once a block, and the Langevin noise of the whole grid is drawn on
-every rank alike (parallel/spatial.py). Not on slabs: factorized Ewald,
-grids below 3 cells per dim, make_minimize, and the barostat
-(tiled/npt.py), which refuse.
+every rank alike (parallel/spatial.py). Every method runs on slabs:
+make_minimize sums its water terms over the ranks in one all-reduce a
+step; factorized Ewald sums the water's structure factor, Σq and Σq²
+over the ranks before the solute's are added; below 3 cells per dim a
+force evaluation gathers the tiles once and every rank runs the plain
+tally path on the whole grid, keeping its own rows. The barostat and the
+elastic drivers (tiled/npt.py, tiled/elastic.py) take such an engine.
+The one refusal is a grid x dimension that the ranks do not divide.
 """
 from __future__ import annotations
 
@@ -71,7 +76,7 @@ from constant_ph_tpu_torch.engine import (
 from constant_ph_tpu_torch.integrators import nhc_halfstep, replica_randn
 from constant_ph_tpu_torch.lambda_dyn import BiasParams
 from constant_ph_tpu_torch.ops.bonded import bonded_forces
-from constant_ph_tpu_torch.ops.ewald import ewald_recip_xd
+from constant_ph_tpu_torch.ops.ewald import ewald_recip_sets
 from constant_ph_tpu_torch.ops.pme import PMEParams, pme_recip_tiled
 from constant_ph_tpu_torch.parallel import comm, spatial as spatial_mod
 from constant_ph_tpu_torch.tiled import forces as tforces
@@ -129,10 +134,6 @@ class TiledEngine:
         # the rank's x-slab (parallel/spatial.py), or None
         self.slab = None
         if spatial is not None:
-            if kspace_ep is not None and not isinstance(kspace_ep,
-                                                        PMEParams):
-                raise NotImplementedError(
-                    "factorized Ewald on x-slabs is not ported; use PME")
             self.slab = spatial_mod.slab_of(spatial, tsys.params)
         full_float32_matmuls()
 
@@ -225,14 +226,22 @@ class TiledEngine:
         wxg = st.wx.reshape(R, 3, gx, gy, gz, 3 * W).contiguous()
         wvg = st.wvalid.reshape(R, gx, gy, gz, W)
 
-        fast_ok = min(p.grid) >= 3 and not need_tally
+        small = min(p.grid) < 3
+        fast_ok = not small and not need_tally
         wxk, wvk, kwk = wxg, wvg, kw          # the kernels' tiles
-        if slab is not None:
+        wxw, wvw = wxg, wvg                   # the plain tally path's
+        if slab is not None and small:
+            # below 3 cells the plain tally path's minimum image needs the
+            # whole grid: one gather, every rank computes the water terms
+            # of the whole grid and keeps its own rows (summed nowhere)
+            wxw, wvw = spatial_mod.gather_cells([(wxg, 2), (wvg, 1)], slab)
+        elif slab is not None:
             # one halo exchange into the kernels' slab entries; K2's also
             # serves the tallies
             wxk, wvk = spatial_mod.halo(wxg, wvg, slab)
             kwk = dict(kw, x_first=slab.x_first)
-        if self.use_pallas_ww or (need_tally and slab is not None):
+        if self.use_pallas_ww or (need_tally and slab is not None
+                                  and not small):
             e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water_tally(
                 wxk, wvk, ts.water, p, box, **kwk)
         elif fast_ok:
@@ -241,7 +250,7 @@ class TiledEngine:
             eatom_ww = torch.zeros_like(wxg[:, 0])
         else:
             e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water(
-                wxg, wvg, ts.water, p, box, **kw)
+                wxw, wvw, ts.water, p, box, **kw)
 
         qs = self.charges_solute(st.lam)                     # (R, Ns)
         if fast_ok:
@@ -254,8 +263,12 @@ class TiledEngine:
         else:
             (e_lj_ws, e_c_ws, f_w_ws, f_s_ws, eatom_w_ws, eatom_s_ws, _,
              phi_s_ws) = tforces.water_solute(
-                wxg, wvg, st.sx, qs, ts.solute, ts.water, p, box, **kw)
-        if slab is not None:
+                wxw, wvw, st.sx, qs, ts.solute, ts.water, p, box, **kw)
+        if slab is not None and small:
+            own = slice(slab.x_first, slab.x_first + slab.n)
+            f_ww, f_w_ws = f_ww[:, :, own], f_w_ws[:, :, own]
+            eatom_ww, eatom_w_ws = eatom_ww[:, own], eatom_w_ws[:, own]
+        elif slab is not None:
             # the water-derived sums over the ranks, in one all-reduce;
             # the solute's own terms below run on every rank alike
             (e_lj_ww, e_c_ww, e_lj_ws, e_c_ws, f_s_ws, phi_s_ws,
@@ -306,24 +319,26 @@ class TiledEngine:
                 eatom_s = eatom_s + 0.5 * qs_m * phi_recip
             e_kspace = ek + self.e_corr
         elif self.kspace_ep is not None:
-            # factorized Ewald over every water slot and solute atom:
-            # parked slots carry no charge and get no force
+            # factorized Ewald over the water slots (a slab's own) and the
+            # solute atoms: parked slots carry no charge and get no force.
+            # The water's S(k), Σq and Σq² are summed over the slabs in one
+            # all-reduce, then the solute's are added on every rank alike
             vm_atoms = torch.repeat_interleave(st.wvalid, 3,
                                                dim=-1).reshape(R, -1)
-            nw = vm_atoms.shape[-1]
-            q_all = torch.cat([self.wq_pat.repeat(self.G) * vm_atoms,
-                               qs * ts.solute.smask], dim=-1)
-            xd = tuple(torch.cat([st.wx[:, d].reshape(R, -1), st.sx[..., d]],
-                                 dim=-1) for d in range(3))
-            ek, fk, phik, eatomk = ewald_recip_xd(xd, q_all, self.kspace_ep)
-            fwk = torch.stack([fk[d][:, :nw] * vm_atoms for d in range(3)],
-                              dim=1)
-            fsk = torch.stack([fk[d][:, nw:] for d in range(3)], dim=-1)
-            fw = fw + float(k_ev) * fwk.reshape(R, 3, self.G, 3 * W)
-            fs = fs + float(k_ev) * fsk
-            phi_recip = phik[:, nw:]
-            eatom_w = eatom_w + eatomk[:, :nw].reshape(R, self.G, 3 * W)
-            eatom_s = eatom_s + eatomk[:, nw:]
+            water = (tuple(st.wx[:, d].reshape(R, -1) for d in range(3)),
+                     self.wq_pat.repeat(G) * vm_atoms)
+            solute = (tuple(st.sx[..., d] for d in range(3)),
+                      qs * ts.solute.smask)
+            ek, ((fkw, _, eatomkw), (fks, phiks, eatomks)) = \
+                ewald_recip_sets(
+                    [water, solute], self.kspace_ep,
+                    reduce=None if slab is None else self._sum_over_slabs)
+            fwk = torch.stack([f * vm_atoms for f in fkw], dim=1)
+            fw = fw + float(k_ev) * fwk.reshape(R, 3, G, 3 * W)
+            fs = fs + float(k_ev) * torch.stack(fks, dim=-1)
+            phi_recip = phiks
+            eatom_w = eatom_w + eatomkw.reshape(R, G, 3 * W)
+            eatom_s = eatom_s + eatomks
             e_kspace = ek + self.e_corr
 
         phi_s = phi_s + phi_recip
@@ -357,6 +372,13 @@ class TiledEngine:
             phi_recip_s=phi_recip,
         )
 
+    def slab_total(self, t):
+        """``t`` summed over the slabs' ranks in one all-reduce (the same
+        bits on every rank); ``t`` itself off slabs."""
+        if self.slab is None:
+            return t
+        return comm.all_reduce_sum(t, self.slab.group)
+
     def _sum_over_slabs(self, *parts):
         """Each (R, …) tensor of ``parts`` summed over the slabs' ranks,
         all in one all-reduce."""
@@ -388,10 +410,8 @@ class TiledEngine:
         """Kinetic energy (R,) of a batch's velocities (on slabs, the
         water's summed over the ranks)."""
         vm_atoms = torch.repeat_interleave(wvalid, 3, dim=-1)[:, None]
-        ke_w = 0.5 * units.MVV2E * torch.sum(
-            (self.wmass * wv * wv * vm_atoms).flatten(1), dim=-1)
-        if self.slab is not None:
-            ke_w = comm.all_reduce_sum(ke_w, self.slab.group)
+        ke_w = self.slab_total(0.5 * units.MVV2E * torch.sum(
+            (self.wmass * wv * wv * vm_atoms).flatten(1), dim=-1))
         sol = self.ts.solute
         ke_s = 0.5 * units.MVV2E * torch.sum(
             (sol.mass[:, None] * sv * sv * sol.smask[:, None]).flatten(1),
@@ -434,9 +454,8 @@ class TiledEngine:
         if frc is None:
             frc = self.compute_forces(st, need_tally=True)
         vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
-        HA_w = torch.sum(frc.eatom_w * vm_atoms, dim=(-2, -1))
-        if self.slab is not None:
-            HA_w = comm.all_reduce_sum(HA_w, self.slab.group)
+        HA_w = self.slab_total(torch.sum(frc.eatom_w * vm_atoms,
+                                         dim=(-2, -1)))
         HA = HA_w + torch.sum(frc.eatom_s * self.ts.solute.smask, dim=-1)
         HB = HA - torch.sum(torch.where(self.ts.groupH_mask, frc.eatom_s,
                                         0.0), dim=-1)
@@ -661,12 +680,11 @@ class TiledEngine:
                       n_min=5, max_move=0.05):
         """FIRE relaxation of the tiled system (λ held fixed); rigid-water
         constraints are projected every move. Returns minimize(st) →
-        (st with zero velocities, per-block final energies). Not on
-        x-slabs."""
-        if self.slab is not None:
-            raise NotImplementedError(
-                "FIRE on x-slabs is not ported: minimise the whole grid, "
-                "then shard the state")
+        (st with zero velocities, per-block final energies). On x-slabs
+        the three water sums of a step (F·v, F², v²) are summed over the
+        ranks in one all-reduce and the solute's added on every rank
+        alike, so the adaptive step, α and the uphill test are the same
+        on every rank; the moves and constraints stay local."""
         block = self.cfg.rebuild_every
         n_blocks = -(-n_steps // block)
         inv_mw = (units.FTM2V / self.wmass)[None, None, :]
@@ -680,11 +698,12 @@ class TiledEngine:
             fs = frc.fs * smask
             vw = vw + dtf * fw * inv_mw
             vs = vs + dtf * fs * inv_ms
-            power = torch.sum(fw * vw) + torch.sum(fs * vs)
-            f_norm = torch.sqrt(torch.sum(fw * fw) + torch.sum(fs * fs)
-                                + 1e-20)
-            v_norm = torch.sqrt(torch.sum(vw * vw) + torch.sum(vs * vs)
-                                + 1e-20)
+            w_fv, w_ff, w_vv = self.slab_total(torch.stack(
+                [torch.sum(fw * vw), torch.sum(fw * fw),
+                 torch.sum(vw * vw)]))
+            power = w_fv + torch.sum(fs * vs)
+            f_norm = torch.sqrt(w_ff + torch.sum(fs * fs) + 1e-20)
+            v_norm = torch.sqrt(w_vv + torch.sum(vs * vs) + 1e-20)
             mix = v_norm / f_norm
             uphill = power < 0.0
             vw = torch.where(uphill, 0.0, (1.0 - al) * vw + al * fw * mix)
@@ -720,7 +739,7 @@ class TiledEngine:
             n_pos = torch.zeros((), dtype=torch.int32, device=dev)
             e_hist = []
             for _ in range(n_blocks):
-                st, _ = rebin(st, self.ts.params)
+                st, _ = self._rebin(st)
                 # restart FIRE each block: keeps the adaptive dt from
                 # running away against the constraint projections
                 vw = torch.zeros_like(st.wv)
@@ -802,10 +821,9 @@ class TiledEngine:
                 # rows keep their identity within a block (rebinning only
                 # moves rows at block start); parked rows don't move
                 dw2 = torch.sum((st.wx[..., 0::3] - wxO0) ** 2, dim=1)
-                drift = torch.amax(dw2, dim=(1, 2)) > drift_budget ** 2
-                if self.slab is not None:
-                    drift = comm.all_reduce_sum(
-                        drift.to(torch.float32), self.slab.group) > 0
+                drift = self.slab_total((torch.amax(dw2, dim=(1, 2))
+                                         > drift_budget ** 2)
+                                        .to(torch.float32)) > 0
                 ov_drift = ov_drift | drift
                 # keep the k-space MTS carry in the state, so the next run
                 # call keeps the stale-φ λ coupling

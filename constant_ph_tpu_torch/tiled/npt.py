@@ -19,6 +19,13 @@ tests feed the JAX move's own draws); accept or reject is a torch.where
 on the device. k-space composes only as PME with cfg.kspace_live_box=True
 (the influence function follows the state box, ops/pme.py); baked-box
 reciprocal parameters are refused.
+
+On an engine on x-slabs (TiledEngine(spatial=group)) a state is the
+rank's slab: each rank scales its own molecules, the molecule count is
+summed over the ranks, and the energies come summed from compute_forces.
+The move's two uniforms and the decision's inputs (the two energies and
+the molecule count) are rank 0's on every rank, broadcast, so every rank
+takes the same decision and keeps the same box by construction.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 
 from constant_ph_tpu_torch import units
 from constant_ph_tpu_torch.lambda_dyn import BiasParams
+from constant_ph_tpu_torch.parallel import comm
 from constant_ph_tpu_torch.tiled.elastic import _run_elastic
 from constant_ph_tpu_torch.tiled.engine import TiledEngine
 from constant_ph_tpu_torch.tiled.layout import TiledState
@@ -56,10 +64,7 @@ def _check_npt_kspace(eng: TiledEngine) -> None:
     cfg.kspace_live_box derives the influence function, spacing and volume
     from the state box (ops/pme.py), so U(s·x, s·box) is exact. Baked-box
     k-space params would evaluate the scaled configuration with a stale
-    influence function — refuse. The barostat is not ported to x-slabs
-    (its molecule scaling and counts read the whole grid): refuse them."""
-    if eng.slab is not None:
-        raise NotImplementedError("the MC barostat on x-slabs is not ported")
+    influence function — refuse."""
     if eng.kspace_ep is None:
         return
     if not eng.cfg.kspace_live_box:
@@ -70,10 +75,12 @@ def _check_npt_kspace(eng: TiledEngine) -> None:
 
 
 class _Scaler:
-    """Molecular centre-of-mass scaling of a tiled state, and the molecule
-    count of the ideal-gas term."""
+    """Molecular centre-of-mass scaling of a tiled state (a slab's own
+    molecules on x-slabs), and the molecule count of the ideal-gas term
+    (summed over the slabs)."""
 
     def __init__(self, eng: TiledEngine):
+        self.eng = eng
         ts = eng.ts
         dev = ts.device
         self.W = ts.params.W
@@ -101,7 +108,15 @@ class _Scaler:
                                    box=tst.box * s)
 
     def n_mol(self, tst: TiledState):
-        return torch.sum(tst.wvalid) + self.n_mol_static
+        return self.eng.slab_total(torch.sum(tst.wvalid)) + self.n_mol_static
+
+
+def _from_rank0(eng: TiledEngine, *values):
+    """The 0-d tensors ``values`` as rank 0 of the engine's slabs holds
+    them, on every rank (one broadcast); themselves off slabs."""
+    if eng.slab is None:
+        return values
+    return comm.broadcast(torch.stack(values), eng.slab.group).unbind()
 
 
 def make_mc_barostat(eng: TiledEngine, *, pressure_atm: float, T: float,
@@ -112,7 +127,9 @@ def make_mc_barostat(eng: TiledEngine, *, pressure_atm: float, T: float,
     ``generator`` (default: the engine's).
 
     ``max_dlnV`` is the half-width of the ln-V proposal; tune for ~40-60%
-    acceptance (2e-3 ≈ ±0.07% in box length for liquid water boxes)."""
+    acceptance (2e-3 ≈ ±0.07% in box length for liquid water boxes).
+    On x-slabs every rank calls it on its slab and gets the same
+    decision."""
     _check_npt_kspace(eng)
     scale = _Scaler(eng)
     kT = units.BOLTZ * T
@@ -123,16 +140,17 @@ def make_mc_barostat(eng: TiledEngine, *, pressure_atm: float, T: float,
         if u is None:
             gen = eng.generator if generator is None else generator
             u = torch.rand((2,), generator=gen, dtype=dtype, device=dev)
-        u_prop, u_acc = (torch.as_tensor(v, dtype=dtype, device=dev)
-                         for v in u)
+        u_prop, u_acc = _from_rank0(
+            eng, *(torch.as_tensor(v, dtype=dtype, device=dev) for v in u))
         v0 = tst.box[0] * tst.box[1] * tst.box[2]
         dln = max_dlnV * (2.0 * u_prop - 1.0)
         s = torch.exp(dln / 3.0)
         tst_new = scale(tst, s)
-        u0 = eng.compute_forces(tst).e_pot
-        u1 = eng.compute_forces(tst_new).e_pot
+        u0, u1, n_mol = _from_rank0(
+            eng, eng.compute_forces(tst).e_pot,
+            eng.compute_forces(tst_new).e_pot, scale.n_mol(tst))
         dH = ((u1 - u0) + p_kcal * v0 * (torch.exp(dln) - 1.0)
-              - (scale.n_mol(tst) + 1.0) * kT * dln)
+              - (n_mol + 1.0) * kT * dln)
         accept = u_acc < torch.exp(torch.clamp(-dH / kT, max=0.0))
         out = dataclasses.replace(tst, **{
             f.name: torch.where(accept, getattr(tst_new, f.name),
@@ -149,7 +167,8 @@ def make_pressure_fn(eng: TiledEngine, *, T: float, dlnV: float = 2e-4):
     N_mol·kT/V − ∂U/∂V at fixed molecular fractional coordinates, ∂U/∂V by
     central difference of the COM-scaled energy the MC barostat uses
     (rigid bodies ⇒ molecular virial). Two force evaluations — a
-    diagnostic, not a hot-path term."""
+    diagnostic, not a hot-path term. On x-slabs every rank calls it on
+    its slab."""
     _check_npt_kspace(eng)
     scale = _Scaler(eng)
     kT = units.BOLTZ * T
@@ -172,7 +191,8 @@ def npt_elastic_run(ts, tst, cfg, n_steps: int, *, pressure_atm: float,
                     chunk: int = 2000, bias=None, kspace_ep=None,
                     margin_min: int = 6, max_dlnV: float = 2e-3,
                     seed: int = 0, max_box_drift: float = 0.04,
-                    on_chunk=None, generator=None, check_sync=False):
+                    on_chunk=None, generator=None, check_sync=False,
+                    spatial=None):
     """The elastic production loop (tiled/elastic.py) with one MC volume
     move after each chunk; the move is rebuilt only on a capacity retile.
     The run's noise comes from ``generator`` (as in elastic_run), the
@@ -182,7 +202,8 @@ def npt_elastic_run(ts, tst, cfg, n_steps: int, *, pressure_atm: float,
     proposed and accepted and the volume after each. The cell grid is
     fixed at build, so the box may drift at most ``max_box_drift``
     (relative, per dimension) from its start; beyond that the run stops
-    with an error (re-split the system to continue)."""
+    with an error (re-split the system to continue). With ``spatial``
+    (a process group) the run is on x-slabs, as elastic_run's."""
     chunk = -(-chunk // cfg.rebuild_every) * cfg.rebuild_every
     box0 = tst.box.double().cpu().numpy()
     mc_gen = torch.Generator(device=ts.device).manual_seed(seed)
@@ -191,7 +212,7 @@ def npt_elastic_run(ts, tst, cfg, n_steps: int, *, pressure_atm: float,
 
     def make_engine(ts_):
         return TiledEngine(ts_, cfg, bias=bias or BiasParams(),
-                           kspace_ep=kspace_ep)
+                           kspace_ep=kspace_ep, spatial=spatial)
 
     def boundary(eng, tst_):
         if eng not in moves:

@@ -28,6 +28,7 @@ import torch
 from constant_ph_tpu.engine import EngineConfig as JConfig
 from constant_ph_tpu.tiled.engine import TiledEngine as JEngine
 from constant_ph_tpu_torch.engine import EngineConfig
+from constant_ph_tpu_torch.ops.ewald import make_ewald_params
 from constant_ph_tpu_torch.tiled.engine import TiledEngine
 
 from test_torch_layout import jax_tiled, port_of
@@ -82,16 +83,17 @@ def test_nve_trajectory_follows_jax(case):
 
 
 def test_unported_paths_raise(case):
-    _, _, tts, _ = case
+    _, _, tts, tst = case
     # a live box needs PME: anything else is refused
     with pytest.raises(ValueError, match="kspace_live_box requires PME"):
         TiledEngine(tts, EngineConfig(kspace_live_box=True),
                     kspace_ep=object())
-    # factorized Ewald on x-slabs is not ported (parallel/spatial.py; the
-    # cross-device hill merges, refused here before, are)
-    with pytest.raises(NotImplementedError, match="Ewald on x-slabs"):
-        TiledEngine(tts, EngineConfig(), kspace_ep=object(),
-                    spatial=object())
+    # factorized Ewald on x-slabs, refused until it was ported, constructs
+    # (without a process group the slab is the whole grid);
+    # tests/test_torch_spatial_ewald.py runs it on 2 ranks
+    ep = make_ewald_params(tst.box.numpy(), 0.3, device="cpu")
+    eng = TiledEngine(tts, EngineConfig(), kspace_ep=ep, spatial=object())
+    assert (eng.slab.world, eng.slab.n) == (1, tts.params.grid[0])
     with pytest.raises(ValueError, match="kspace_every"):
         TiledEngine(tts, EngineConfig(kspace_every=0))
 
