@@ -94,7 +94,7 @@ available or the port's package is not beside it.
    K1 on the campaign tiles alone and on the six walkers in one launch
    (time, bound, pairs), the water×solute and solute×solute blocks at Ns
    600 (time, memory, also water×solute on the six), and a batched block
-   at R = 6 and at R = 9 under torch.profiler (idle share, device ops).
+   at R = 6 and at R = 9 under torch.profiler (busy ms, device ops).
 6. NPT phase on the PME production state: tiled.npt.npt_elastic_run at 1
    atm with the live-box PME, 2 chunks of 48 steps at the PME path's
    settings (dt 2 fs) with an MC volume move after each, and
@@ -172,7 +172,7 @@ available or the port's package is not beside it.
    looped from one state with generators of the same seeds (λ 1e-4,
    positions 1e-3 Å, h_conserved 1e-4 relative: TOL_BATCH_LOOP) and
    each form's ms per walker-step; one batched block under
-   torch.profiler (device busy ms and idle share a step); the
+   torch.profiler (device busy ms and device ops a step); the
    ``[reference rex batch]`` line. Then calibrate_dG_ref (7 nodes ×
    (5 + 10) steps after 50 FIRE steps; finite).
 
@@ -247,7 +247,7 @@ water_pairs_in_cutoff_tally for K2); the whole-stencil figure is printed
 beside it as stencil_bound_ms.
 
 ``--profile`` adds one PME production block under torch.profiler (device
-busy time by kernel and the device's idle share).
+busy time by kernel and device ops a step).
 
 Output: human-readable lines, then one JSON line {"kernels": [...]}, the
 card's name and power limit as nvidia-smi reports them, and last
@@ -383,17 +383,24 @@ def tally_stencil_bound_ms(G, A, style):
 
 
 def zero_counts():
-    from constant_ph_tpu_torch.tiled import cuda_ww
+    from constant_ph_tpu_torch import profiling
 
-    for fn in (cuda_ww.water_water_cuda, cuda_ww.water_water_tally_cuda):
-        fn.launches = fn.spatial_launches = 0
+    profiling.reset_counters()
 
 
 def read_counts():
-    from constant_ph_tpu_torch.tiled import cuda_ww
+    from constant_ph_tpu_torch import profiling
 
-    return {"ww_pair": cuda_ww.water_water_cuda.launches,
-            "ww_tally": cuda_ww.water_water_tally_cuda.launches}
+    c = profiling.counters()
+    return {"ww_pair": c["k1_launches"], "ww_tally": c["k2_launches"]}
+
+
+def read_slab_counts():
+    from constant_ph_tpu_torch import profiling
+
+    c = profiling.counters()
+    return {"ww_pair": c["k1_slab_launches"],
+            "ww_tally": c["k2_slab_launches"]}
 
 
 def e_close(got, ref):
@@ -898,18 +905,16 @@ def kernel_phase(dev):
 
 def profile_block(run_block, st, ms_step, block, label="profile"):
     """torch.profiler over one production block (profiling.profile_block):
-    device busy time by kernel, kernel launches per step, and the device's
-    idle share against the unprofiled step time. Returns (state, {busy
-    ms/step, idle share, device ops/step})."""
+    device busy time by kernel and kernel launches per step. Returns
+    (state, {busy ms/step, device ops/step})."""
     from constant_ph_tpu_torch.profiling import profile_block as prof
 
     st, bp = prof(run_block, st, block)
     summary = dict(busy_ms_per_step=bp.busy_ms_per_step,
-                   idle_share=1.0 - bp.busy_ms_per_step / ms_step,
                    ops_per_step=bp.ops_per_step)
-    log(f"[{label}] device busy {bp.busy_ms_per_step:.3f} ms/step of "
-        f"{ms_step:.3f}: idle share {summary['idle_share']:.4f}"
-        f"; {bp.ops_per_step:.0f} device ops/step")
+    log(f"[{label}] device busy {bp.busy_ms_per_step:.3f} ms/step "
+        f"(unprofiled step {ms_step:.3f} ms); "
+        f"{bp.ops_per_step:.0f} device ops/step")
     # the top rows, and the port's own kernels wherever they rank
     for i, (us, n, key) in enumerate(bp.rows):
         if i < 12 or any(k in key for k in ("ww_pair", "ww_tally",
@@ -1917,7 +1922,7 @@ def reference_campaign(ref, phs=None, rex_steps=20, ti=(5, 10),
     list build's peak memory at R = 4, then one run of the replicas
     batched and looped from one state with generators of the same seeds
     (deltas within TOL_BATCH_LOOP) and one batched block under the
-    profiler (device busy ms and idle share of a batched step); gates:
+    profiler (device busy ms of a batched step); gates:
     finite, no overflow, the pH multiset kept. (b) calibrate_dG_ref (7
     nodes × ti steps after n_min FIRE steps; the result finite)."""
     import dataclasses
@@ -2001,7 +2006,6 @@ def reference_campaign(ref, phs=None, rex_steps=20, ti=(5, 10),
         batched_ms_per_walker_step=cmp["batched_ms_per_walker_step"],
         looped_ms_per_walker_step=cmp["looped_ms_per_walker_step"],
         device_busy_ms_per_step=busy,
-        idle_share=1.0 - busy / cmp["batched_ms_per_step"],
         build_s=t_build, build_peak_gib=build_peak,
         build_peak_gib_per_replica=build_peak / R,
         block_peak_gib=peak, resident_gib=resident, card_gib=total,
@@ -3617,9 +3621,7 @@ def _rank_spatial(r, n, ts, st, pme, cfg, dev):
     _sync(dev)
     counts, stats = read_counts(), {k: dict(v) for k, v in
                                     comm.STATS.items()}
-    counts["spatial"] = {
-        "ww_pair": cuda_ww.water_water_cuda.spatial_launches,
-        "ww_tally": cuda_ww.water_water_tally_cuda.spatial_launches}
+    counts["spatial"] = read_slab_counts()
     # -----------------------------------------------------------------------
     t0 = time.perf_counter()
     st3 = st2
@@ -3632,7 +3634,7 @@ def _rank_spatial(r, n, ts, st, pme, cfg, dev):
     HA, HB = eng.compute_Hs(mine)
     _sync(dev)
     hs_counts = read_counts()
-    hs_counts["spatial"] = cuda_ww.water_water_tally_cuda.spatial_launches
+    hs_counts["spatial"] = read_slab_counts()["ww_tally"]
     res = dict(
         rank=r, world=n, x_first=sl.x_first, layers=sl.n,
         fw=frc.fw, fs=frc.fs, e_pot=frc.e_pot, dUdlam=frc.dUdlam,
@@ -3708,7 +3710,6 @@ def slab_paths(ts, st, pme, cfg, dev, group=None):
 
     from constant_ph_tpu_torch.ops.ewald import make_ewald_params
     from constant_ph_tpu_torch.parallel import comm, spatial
-    from constant_ph_tpu_torch.tiled import cuda_ww
     from constant_ph_tpu_torch.tiled.engine import TiledEngine
     from constant_ph_tpu_torch.tiled.npt import (
         make_mc_barostat, make_pressure_fn, npt_elastic_run)
@@ -3737,9 +3738,7 @@ def slab_paths(ts, st, pme, cfg, dev, group=None):
         res.setdefault("ms_per_step", ms / steps)
         res.update(
             steps=steps, ms=ms,
-            launches=dict(read_counts(), spatial={
-                "ww_pair": cuda_ww.water_water_cuda.spatial_launches,
-                "ww_tally": cuda_ww.water_water_tally_cuda.spatial_launches}),
+            launches=dict(read_counts(), spatial=read_slab_counts()),
             stats={k: dict(v) for k, v in comm.STATS.items()})
         out[name] = res
 

@@ -35,7 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
-from constant_ph_tpu_torch import lambda_dyn, units
+from constant_ph_tpu_torch import lambda_dyn, profiling, units
 from constant_ph_tpu_torch.batching import (
     PerReplica,
     generators_for,
@@ -217,6 +217,7 @@ class Engine:
 
     # -- neighbour structure ----------------------------------------------
 
+    @profiling.spanned("cph.nbr_build")
     def build_neighbors(self, x, box) -> NeighborList:
         """One replica's list, or a batch's (x (R, N, 3), box (R, 3)) in
         one build."""
@@ -231,13 +232,16 @@ class Engine:
             return self.ff.q0.expand(lam.shape[:-1] + self.ff.q0.shape)
         return lambda_dyn.charges(self.ff.q0, self.spec, lam)
 
+    @profiling.spanned("cph.forces")
     @state_batched
     def compute_forces(self, x, lam, box, pH, nbr: NeighborList) -> Forces:
         """Forces of a batch (x (R, N, 3), lam (R, S), box (R, 3), pH
         (R,), nbr a batch of lists), or of one replica."""
+        profiling.count("forces")
         ff = self.ff
         q = self.charges(lam)
-        pr = pair_forces(x, q, ff.type, box, nbr, ff.pair)
+        with profiling.span("cph.forces.pair"):
+            pr = pair_forces(x, q, ff.type, box, nbr, ff.pair)
         f, phi, eatom = pr.force, pr.phi, pr.eatom
         zero = x.new_zeros(x.shape[:1])
         e_bonded = e_kspace = zero
@@ -248,7 +252,8 @@ class Engine:
             f = f + fb
             eatom = eatom + eatom_b
         if self.kspace_fn is not None:
-            ek, fk, phik, eatom_k = self.kspace_fn(x, q, box)
+            with profiling.span("cph.forces.kspace"):
+                ek, fk, phik, eatom_k = self.kspace_fn(x, q, box)
             e_kspace = e_kspace + ek
             f = f + fk
             phi = phi + phik
@@ -261,10 +266,12 @@ class Engine:
             eatom = eatom + eatom_p
 
         if self.spec is not None:
-            dUdlam = lambda_dyn.dq_dlambda_dot(self.spec, phi)
-            f_lam, u_site = lambda_dyn.lambda_force(
-                lam, dUdlam, self.spec, pH[:, None], self.cfg.T, self.bias)
-            e_site = torch.sum(u_site, dim=-1)
+            with profiling.span("cph.forces.lambda"):
+                dUdlam = lambda_dyn.dq_dlambda_dot(self.spec, phi)
+                f_lam, u_site = lambda_dyn.lambda_force(
+                    lam, dUdlam, self.spec, pH[:, None], self.cfg.T,
+                    self.bias)
+                e_site = torch.sum(u_site, dim=-1)
         else:
             dUdlam = f_lam = x.new_zeros(x.shape[:1] + (0,))
             e_site = zero
@@ -277,6 +284,7 @@ class Engine:
     def _ndof(self, x):
         return 3 * x.shape[-2] - 3 - self.n_constraints
 
+    @profiling.spanned("cph.observe")
     @state_batched
     def observe(self, state: SystemState, frc: Forces) -> Observables:
         """Observables of a batch (fields (R, …)), or of one state."""
@@ -342,6 +350,7 @@ class Engine:
         return (torch.where(odd, 2.0 * rng - y, y) + lo,
                 torch.where(odd, -v_lam, v_lam))
 
+    @profiling.spanned("cph.step")
     @state_batched
     def step(self, state: SystemState, frc: Forces, nbr: NeighborList,
              generators=None):
@@ -350,6 +359,7 @@ class Engine:
         Langevin noise comes from ``generators`` (one a replica; for one
         state a Generator, default: the engine's); a batch without Langevin
         noise needs none."""
+        profiling.count("steps")
         cfg = self.cfg
         mass = self.ff.mass
         dt = cfg.dt
@@ -477,6 +487,7 @@ class Engine:
         block = self.cfg.rebuild_every
         n_blocks = -(-n_steps // block)
 
+        @profiling.spanned("cph.run")
         @state_batched
         def run(state: SystemState, nbr: NeighborList, generators=None):
             rows = []

@@ -31,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from constant_ph_tpu_torch import resolve_device, units
+from constant_ph_tpu_torch import profiling, resolve_device, units
 from constant_ph_tpu_torch.parallel import comm
 
 
@@ -154,10 +154,12 @@ def deposit(V, dV, lam, p: MetadParams):
     return V + hg, dV + hdg
 
 
+@profiling.spanned("cph.metad.deposit_many")
 def deposit_many(V, dV, lam_seq, p: MetadParams):
     """Deposit a time-ordered sequence of hills (K, S) into shared tables,
     each hill's well-tempered height computed against the progressively
     updated table (the multiple-walkers merge)."""
+    profiling.count("hill_merges", len(lam_seq))
     for lam in lam_seq:
         V, dV = deposit(V, dV, lam, p)
     return V, dV

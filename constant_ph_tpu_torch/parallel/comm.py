@@ -25,11 +25,14 @@ rank's own layers.
 
 ``STATS`` counts, per call kind, the calls, the bytes this rank handed to
 the collective and the point-to-point messages it sent; the tests and
-chip_smoke.py read and reset it (``reset_stats``)."""
+chip_smoke.py read and reset it (``reset_stats``). Each call runs inside
+the span ``cph.comm.<kind>`` (profiling.span)."""
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from constant_ph_tpu_torch.profiling import spanned
 
 STATS = {}
 
@@ -98,6 +101,7 @@ def _host(t):
     return h
 
 
+@spanned("cph.comm.all_reduce")
 def all_reduce_sum(t, group=None):
     """The elementwise sum of ``t`` over the ranks, returned as a new
     tensor on t's device; every rank gets the same bits."""
@@ -114,6 +118,7 @@ def all_reduce_sum(t, group=None):
     return out
 
 
+@spanned("cph.comm.all_gather")
 def all_gather(t, group=None):
     """The ranks' ``t`` (equal shapes) stacked in rank order along a new
     leading axis: (world, *t.shape) on t's device."""
@@ -128,6 +133,7 @@ def all_gather(t, group=None):
     return torch.stack(parts).to(t.device)
 
 
+@spanned("cph.comm.broadcast")
 def broadcast(t, group=None, src: int = 0):
     """The group rank ``src``'s ``t`` on every rank of ``group``, as a
     new tensor on t's device: the same bits on every rank."""
@@ -145,6 +151,7 @@ def broadcast(t, group=None, src: int = 0):
     return out
 
 
+@spanned("cph.comm.halo_exchange")
 def halo_exchange(first, last, group=None):
     """One ghost layer to each side on a periodic ring of ranks: this
     rank sends ``first`` (its first layer) to rank − 1 and ``last`` to

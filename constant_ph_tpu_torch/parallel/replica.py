@@ -33,7 +33,12 @@ import dataclasses
 
 import torch
 
-from constant_ph_tpu_torch import lambda_dyn, resolve_device, units
+from constant_ph_tpu_torch import (
+    lambda_dyn,
+    profiling,
+    resolve_device,
+    units,
+)
 from constant_ph_tpu_torch.batching import replica_of
 from constant_ph_tpu_torch.engine import Observables
 from constant_ph_tpu_torch.parallel import comm
@@ -103,6 +108,7 @@ def _swap(lam, pH, generator, bias, parity, u=None):
     return torch.where(accept, pH[partner], pH), accept
 
 
+@profiling.spanned("cph.rex.swap")
 def swap_phs(states, generator, bias, parity, u=None, group=None):
     """One even/odd pH-swap sweep over the replica batch (leading axis R).
 
@@ -118,6 +124,7 @@ def swap_phs(states, generator, bias, parity, u=None, group=None):
     batch with uniforms (R,) that ``generator`` draws alike on every rank,
     and the rank keeps its slice of the new pHs and of the accepted
     mask."""
+    profiling.count("swaps")
     if comm.world(group) == 1:
         new_pH, accept = _swap(states.lam, states.pH, generator, bias,
                                parity, u)

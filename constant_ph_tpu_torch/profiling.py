@@ -6,18 +6,98 @@ JAX package's block_until_ready), ns/day meters, a torch.profiler trace
 (Chrome format) in place of the XProf trace, per-component timing with
 CUDA events, and the kernel timers chip_smoke.py uses: device time from a
 CUDA graph (``graph_ms``), from CUDA events (``cuda_ms``), and the device
-busy share of a run block under torch.profiler (``profile_block``).
+busy time of a run block under torch.profiler (``profile_block``).
+
+Spans and counters inside the program:
+
+- ``span(name)`` is a ``torch.profiler.record_function`` range while a
+  profiler runs, and one shared ``contextlib.nullcontext`` otherwise (a
+  flag check; nothing is made, no dispatcher call); ``spanned(name)``
+  wraps a function in one. Any torch.profiler run records them beside
+  the kernels launched inside them, on the same clock: ``with
+  profiling.trace(logdir): ...`` writes them into ``logdir/trace.json``.
+  ``SPANS`` names every span, all under ``cph.``; the tree (parent →
+  children):
+
+      cph.run → cph.rebin, cph.nbr_build, cph.step, cph.forces (block
+          start), cph.observe, cph.metad.deposit
+      cph.step → cph.shake, cph.forces
+      cph.forces → cph.forces.water_water, .water_solute, .solute_solute,
+          .pair, .kspace (an MTS boundary only), .lambda
+      cph.minimize → cph.rebin, cph.forces, cph.shake
+      cph.metad.deposit_many, cph.rex.swap, cph.comm.<kind>: under the
+          caller's span
+
+- ``COUNTERS`` are plain host integers, always on (a dict increment,
+  never a read of a device value): force evaluations, steps, rebins,
+  in-run deposits, hills merged by ``metad.deposit_many``, ``swap_phs``
+  calls, and the launches of the CUDA kernels K1 and K2 (all, and those
+  through their slab entries). Read them with ``counters()``, zero them
+  with ``reset_counters()``. Overflow flags, accepted swaps and failed
+  replica-blocks stay device tensors that the caller reads when it
+  synchronises anyway; the collectives have their own counter
+  (parallel/comm.STATS).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from constant_ph_tpu_torch import units
+
+SPANS = ("cph.run", "cph.rebin", "cph.nbr_build", "cph.step", "cph.shake",
+         "cph.forces", "cph.forces.water_water", "cph.forces.water_solute",
+         "cph.forces.solute_solute", "cph.forces.pair", "cph.forces.kspace",
+         "cph.forces.lambda", "cph.observe", "cph.metad.deposit",
+         "cph.metad.deposit_many", "cph.rex.swap", "cph.comm.all_reduce",
+         "cph.comm.all_gather", "cph.comm.broadcast",
+         "cph.comm.halo_exchange", "cph.minimize")
+COUNTERS = dict.fromkeys(
+    ("forces", "steps", "rebins", "deposits", "hill_merges", "swaps",
+     "k1_launches", "k1_slab_launches", "k2_launches", "k2_slab_launches"),
+    0)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A record_function range named ``name`` while a profiler runs; the
+    shared no-op context otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _autograd_profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function inside ``span(name)``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return wrapper
+    return deco
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name`` (one of COUNTERS)."""
+    COUNTERS[name] += n
+
+
+def counters() -> dict:
+    """A copy of the counters."""
+    return dict(COUNTERS)
+
+
+def reset_counters():
+    """Zero every counter."""
+    for k in COUNTERS:
+        COUNTERS[k] = 0
 
 
 def _sync():
@@ -137,7 +217,10 @@ def profile_block(run_block, st, block):
                              ProfilerActivity.CUDA]) as prof:
         st = run_block(st)[0]
         torch.cuda.synchronize()
-    ka = prof.key_averages()
+    # the spans' own rows are ranges, not device work
+    ka = [e for e in prof.key_averages() if not (
+        getattr(e, "is_user_annotation", False)
+        or e.key.startswith("cph."))]
     # device-side rows (kernels, copies); where the profiler lists none,
     # each CPU op's self device time counts its own kernels once
     rows = [(e.self_device_time_total, e.count, e.key) for e in ka

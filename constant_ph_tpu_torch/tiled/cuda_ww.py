@@ -29,7 +29,7 @@ import subprocess
 
 import torch
 
-from constant_ph_tpu_torch import units
+from constant_ph_tpu_torch import profiling, units
 from constant_ph_tpu_torch.batching import replica_batched
 from constant_ph_tpu_torch.tiled.layout import W_MAX
 
@@ -214,7 +214,9 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None,
     wxg (R, 3, n + 2, gy, gz, 3W) holds n owned x-layers of the global
     grid ``p.grid`` between two ghost layers; f is (R, 3, n, gy, gz, 3W)
     and the energies count the owned cells' pairs (tiled.forces.
-    water_water_slab_plain). It counts in ``spatial_launches`` too."""
+    water_water_slab_plain). Each launch counts in the counter
+    ``k1_launches`` (profiling.COUNTERS), a slab's in
+    ``k1_slab_launches`` too."""
     gx, gy, gz = p.grid
     W = p.W
     A = 3 * W
@@ -263,16 +265,14 @@ def water_water_cuda(wxg, wm, p, box, *, style, alpha, rc, passes=None,
         x_first or 0, gx, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_pair kernel launch failed: CUDA error {err}")
-    water_water_cuda.launches += 1
-    water_water_cuda.spatial_launches += x_first is not None
+    profiling.count("k1_launches")
+    profiling.count("k1_slab_launches", x_first is not None)
     water_water_cuda.passes = n_pass
     water_water_cuda.pairs_evaluated = scratch[2 * R:3 * R].view(torch.int32)
     e = scratch[:2 * R].view(R, 2)
     return e[:, 0], e[:, 1], f
 
 
-water_water_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
-water_water_cuda.spatial_launches = 0     # of them, through the slab entry
 water_water_cuda.pairs_evaluated = None   # (R,) of the last launch
 water_water_cuda.passes = None            # of the last launch
 
@@ -304,8 +304,9 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
     Slab entry (``x_first`` the global x index of the first owned layer):
     wt (R, n + 2, gy, gz, 8, A) holds n owned x-layers of the global grid
     ``p.grid`` between two ghost layers; out is (R, n, gy, gz, 8, A)
-    (tiled.forces.water_water_tally_plain with ``x_first``). It counts in
-    ``spatial_launches`` too."""
+    (tiled.forces.water_water_tally_plain with ``x_first``). Each launch
+    counts in the counter ``k2_launches`` (profiling.COUNTERS), a slab's
+    in ``k2_slab_launches`` too."""
     gx, gy, gz = p.grid
     W = p.W
     A = 3 * W
@@ -345,14 +346,12 @@ def water_water_tally_cuda(wt, box, wm, p, *, style, alpha, rc,
         torch.cuda.current_stream(wt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ww_tally kernel launch failed: CUDA error {err}")
-    water_water_tally_cuda.launches += 1
-    water_water_tally_cuda.spatial_launches += x_first is not None
+    profiling.count("k2_launches")
+    profiling.count("k2_slab_launches", x_first is not None)
     water_water_tally_cuda.passes = n_pass
     water_water_tally_cuda.pairs_evaluated = count
     return out
 
 
-water_water_tally_cuda.launches = 0   # kernel launches (read by chip_smoke.py)
-water_water_tally_cuda.spatial_launches = 0   # of them, through the slab entry
 water_water_tally_cuda.pairs_evaluated = None   # (R,) of the last launch
 water_water_tally_cuda.passes = None            # of the last launch

@@ -61,7 +61,12 @@ import math
 import numpy as np
 import torch
 
-from constant_ph_tpu_torch import lambda_dyn, metad as metad_mod, units
+from constant_ph_tpu_torch import (
+    lambda_dyn,
+    metad as metad_mod,
+    profiling,
+    units,
+)
 from constant_ph_tpu_torch.batching import (
     PerReplica,
     bview,
@@ -190,6 +195,7 @@ class TiledEngine:
             return ts.solute.q0.expand(lam.shape[:-1] + (-1,))
         return lambda_dyn.charges(ts.solute.q0, ts.spec, lam)
 
+    @profiling.spanned("cph.forces")
     @state_batched
     def compute_forces(self, st: TiledState, need_tally: bool = False,
                        kspace_impulse: bool = False,
@@ -210,6 +216,7 @@ class TiledEngine:
         ``phi_recip_prev``, the previous reciprocal φ; off-boundary
         evaluations report e_kspace = 0. φ and energies are not
         amplified."""
+        profiling.count("forces")
         ts = self.ts
         p = ts.params
         gx, gy, gz = p.grid
@@ -240,30 +247,33 @@ class TiledEngine:
             # serves the tallies
             wxk, wvk = spatial_mod.halo(wxg, wvg, slab)
             kwk = dict(kw, x_first=slab.x_first)
-        if self.use_pallas_ww or (need_tally and slab is not None
-                                  and not small):
-            e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water_tally(
-                wxk, wvk, ts.water, p, box, **kwk)
-        elif fast_ok:
-            e_lj_ww, e_c_ww, f_ww = tforces.water_water_fast(
-                wxk, ts.water, p, box, **kwk)
-            eatom_ww = torch.zeros_like(wxg[:, 0])
-        else:
-            e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water(
-                wxw, wvw, ts.water, p, box, **kw)
+        with profiling.span("cph.forces.water_water"):
+            if self.use_pallas_ww or (need_tally and slab is not None
+                                      and not small):
+                e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = \
+                    tforces.water_water_tally(wxk, wvk, ts.water, p, box,
+                                              **kwk)
+            elif fast_ok:
+                e_lj_ww, e_c_ww, f_ww = tforces.water_water_fast(
+                    wxk, ts.water, p, box, **kwk)
+                eatom_ww = torch.zeros_like(wxg[:, 0])
+            else:
+                e_lj_ww, e_c_ww, f_ww, eatom_ww, _ = tforces.water_water(
+                    wxw, wvw, ts.water, p, box, **kw)
 
         qs = self.charges_solute(st.lam)                     # (R, Ns)
-        if fast_ok:
-            e_lj_ws, e_c_ws, f_w_ws, f_s_ws, phi_s_ws = \
-                tforces.water_solute_fast(
-                    wxg, st.sx, qs, ts.solute, ts.water, p, box,
-                    x_first=0 if slab is None else slab.x_first, **kw)
-            eatom_w_ws = torch.zeros_like(wxg[:, 0])
-            eatom_s_ws = torch.zeros_like(qs)
-        else:
-            (e_lj_ws, e_c_ws, f_w_ws, f_s_ws, eatom_w_ws, eatom_s_ws, _,
-             phi_s_ws) = tforces.water_solute(
-                wxw, wvw, st.sx, qs, ts.solute, ts.water, p, box, **kw)
+        with profiling.span("cph.forces.water_solute"):
+            if fast_ok:
+                e_lj_ws, e_c_ws, f_w_ws, f_s_ws, phi_s_ws = \
+                    tforces.water_solute_fast(
+                        wxg, st.sx, qs, ts.solute, ts.water, p, box,
+                        x_first=0 if slab is None else slab.x_first, **kw)
+                eatom_w_ws = torch.zeros_like(wxg[:, 0])
+                eatom_s_ws = torch.zeros_like(qs)
+            else:
+                (e_lj_ws, e_c_ws, f_w_ws, f_s_ws, eatom_w_ws, eatom_s_ws, _,
+                 phi_s_ws) = tforces.water_solute(
+                    wxw, wvw, st.sx, qs, ts.solute, ts.water, p, box, **kw)
         if slab is not None and small:
             own = slice(slab.x_first, slab.x_first + slab.n)
             f_ww, f_w_ws = f_ww[:, :, own], f_w_ws[:, :, own]
@@ -275,19 +285,21 @@ class TiledEngine:
              eatom_s_ws) = self._sum_over_slabs(
                 e_lj_ww, e_c_ww, e_lj_ws, e_c_ws, f_s_ws, phi_s_ws,
                 eatom_s_ws)
-        e_lj_ss, e_c_ss, f_ss, eatom_ss, phi_ss = tforces.solute_solute(
-            st.sx, qs, ts.solute, box, **kw)
+        zero = st.sx.new_zeros((R,))
+        e_bonded = zero
+        bonded = ts.bonded is not None and int(ts.bonded.bond_idx.shape[0])
+        with profiling.span("cph.forces.solute_solute"):
+            e_lj_ss, e_c_ss, f_ss, eatom_ss, phi_ss = tforces.solute_solute(
+                st.sx, qs, ts.solute, box, **kw)
+            if bonded:
+                e_bonded, fb, eatom_b = bonded_forces(st.sx, box, ts.bonded)
 
         fw = (f_ww + f_w_ws).reshape(R, 3, G, 3 * W)
         fs = f_s_ws + f_ss
         eatom_w = (eatom_ww + eatom_w_ws).reshape(R, G, 3 * W)
         eatom_s = eatom_s_ws + eatom_ss
         phi_s = phi_s_ws + phi_ss
-
-        zero = st.sx.new_zeros((R,))
-        e_bonded = zero
-        if ts.bonded is not None and int(ts.bonded.bond_idx.shape[0]):
-            e_bonded, fb, eatom_b = bonded_forces(st.sx, box, ts.bonded)
+        if bonded:
             fs = fs + fb
             eatom_s = eatom_s + eatom_b
 
@@ -302,63 +314,69 @@ class TiledEngine:
             if phi_recip_prev is not None:
                 phi_recip = phi_recip_prev
         elif isinstance(self.kspace_ep, PMEParams):
-            # an MTS boundary (or no MTS): smooth PME on the cell tiles
-            vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
-            wqg = (self.wq_pat * vm_atoms).reshape(R, gx, gy, gz, 3 * W)
-            qs_m = qs * ts.solute.smask
-            ek, fwk, fsk, phi_recip, phi_wk = pme_recip_tiled(
-                wxg, wqg, st.sx, qs_m, self.kspace_ep,
-                need_water_phi=need_tally,
-                box=st.box if self.cfg.kspace_live_box else None,
-                slab=slab)
-            fw = fw + float(k_ev) * fwk.reshape(R, 3, G, 3 * W)
-            fs = fs + float(k_ev) * fsk
-            if need_tally:
-                eatom_w = eatom_w + (0.5 * wqg * phi_wk).reshape(
-                    R, G, 3 * W)
-                eatom_s = eatom_s + 0.5 * qs_m * phi_recip
-            e_kspace = ek + self.e_corr
+            with profiling.span("cph.forces.kspace"):
+                # an MTS boundary (or no MTS): smooth PME on the cell tiles
+                vm_atoms = torch.repeat_interleave(st.wvalid, 3, dim=-1)
+                wqg = (self.wq_pat * vm_atoms).reshape(R, gx, gy, gz, 3 * W)
+                qs_m = qs * ts.solute.smask
+                ek, fwk, fsk, phi_recip, phi_wk = pme_recip_tiled(
+                    wxg, wqg, st.sx, qs_m, self.kspace_ep,
+                    need_water_phi=need_tally,
+                    box=st.box if self.cfg.kspace_live_box else None,
+                    slab=slab)
+                fw = fw + float(k_ev) * fwk.reshape(R, 3, G, 3 * W)
+                fs = fs + float(k_ev) * fsk
+                if need_tally:
+                    eatom_w = eatom_w + (0.5 * wqg * phi_wk).reshape(
+                        R, G, 3 * W)
+                    eatom_s = eatom_s + 0.5 * qs_m * phi_recip
+                e_kspace = ek + self.e_corr
         elif self.kspace_ep is not None:
-            # factorized Ewald over the water slots (a slab's own) and the
-            # solute atoms: parked slots carry no charge and get no force.
-            # The water's S(k), Σq and Σq² are summed over the slabs in one
-            # all-reduce, then the solute's are added on every rank alike
-            vm_atoms = torch.repeat_interleave(st.wvalid, 3,
-                                               dim=-1).reshape(R, -1)
-            water = (tuple(st.wx[:, d].reshape(R, -1) for d in range(3)),
-                     self.wq_pat.repeat(G) * vm_atoms)
-            solute = (tuple(st.sx[..., d] for d in range(3)),
-                      qs * ts.solute.smask)
-            ek, ((fkw, _, eatomkw), (fks, phiks, eatomks)) = \
-                ewald_recip_sets(
-                    [water, solute], self.kspace_ep,
-                    reduce=None if slab is None else self._sum_over_slabs)
-            fwk = torch.stack([f * vm_atoms for f in fkw], dim=1)
-            fw = fw + float(k_ev) * fwk.reshape(R, 3, G, 3 * W)
-            fs = fs + float(k_ev) * torch.stack(fks, dim=-1)
-            phi_recip = phiks
-            eatom_w = eatom_w + eatomkw.reshape(R, G, 3 * W)
-            eatom_s = eatom_s + eatomks
-            e_kspace = ek + self.e_corr
+            with profiling.span("cph.forces.kspace"):
+                # factorized Ewald over the water slots (a slab's own) and
+                # the solute atoms: parked slots carry no charge and get no
+                # force. The water's S(k), Σq and Σq² are summed over the
+                # slabs in one all-reduce, then the solute's are added on
+                # every rank alike
+                vm_atoms = torch.repeat_interleave(st.wvalid, 3,
+                                                   dim=-1).reshape(R, -1)
+                water = (tuple(st.wx[:, d].reshape(R, -1)
+                               for d in range(3)),
+                         self.wq_pat.repeat(G) * vm_atoms)
+                solute = (tuple(st.sx[..., d] for d in range(3)),
+                          qs * ts.solute.smask)
+                ek, ((fkw, _, eatomkw), (fks, phiks, eatomks)) = \
+                    ewald_recip_sets(
+                        [water, solute], self.kspace_ep,
+                        reduce=(None if slab is None
+                                else self._sum_over_slabs))
+                fwk = torch.stack([f * vm_atoms for f in fkw], dim=1)
+                fw = fw + float(k_ev) * fwk.reshape(R, 3, G, 3 * W)
+                fs = fs + float(k_ev) * torch.stack(fks, dim=-1)
+                phi_recip = phiks
+                eatom_w = eatom_w + eatomkw.reshape(R, G, 3 * W)
+                eatom_s = eatom_s + eatomks
+                e_kspace = ek + self.e_corr
 
         phi_s = phi_s + phi_recip
         if ts.spec is not None:
-            dUdlam = lambda_dyn.dq_dlambda_dot(ts.spec, phi_s)
-            f_lam, u_site = lambda_dyn.lambda_force(
-                st.lam, dUdlam, ts.spec, st.pH[:, None], self.cfg.T,
-                self.bias)
-            e_site = torch.sum(u_site, dim=-1)
-            if self.metad is not None:
-                if tuple(st.metad_v.shape[1:]) != (ts.spec.n_sites,
-                                                   self.metad.nbins):
-                    raise ValueError(
-                        "state carries no metadynamics tables of this "
-                        "shape: set them with metad.init_tables "
-                        "(TiledState.metad_v / metad_dv)")
-                vb, dvb = metad_mod.lookup(st.metad_v, st.metad_dv, st.lam,
-                                           self.metad)
-                f_lam = f_lam - dvb
-                e_site = e_site + torch.sum(vb, dim=-1)
+            with profiling.span("cph.forces.lambda"):
+                dUdlam = lambda_dyn.dq_dlambda_dot(ts.spec, phi_s)
+                f_lam, u_site = lambda_dyn.lambda_force(
+                    st.lam, dUdlam, ts.spec, st.pH[:, None], self.cfg.T,
+                    self.bias)
+                e_site = torch.sum(u_site, dim=-1)
+                if self.metad is not None:
+                    if tuple(st.metad_v.shape[1:]) != (ts.spec.n_sites,
+                                                       self.metad.nbins):
+                        raise ValueError(
+                            "state carries no metadynamics tables of this "
+                            "shape: set them with metad.init_tables "
+                            "(TiledState.metad_v / metad_dv)")
+                    vb, dvb = metad_mod.lookup(st.metad_v, st.metad_dv,
+                                               st.lam, self.metad)
+                    f_lam = f_lam - dvb
+                    e_site = e_site + torch.sum(vb, dim=-1)
         else:
             dUdlam = f_lam = st.sx.new_zeros((R, 0))
             e_site = zero
@@ -422,6 +440,7 @@ class TiledEngine:
     def kinetic_energy(self, st: TiledState):
         return self._ke(st.wvalid, st.wv, st.sv)
 
+    @profiling.spanned("cph.observe")
     @state_batched
     def observe(self, st: TiledState, frc: TiledForces) -> Observables:
         """Observables of a batch (fields (R, …)), or of one state."""
@@ -523,12 +542,14 @@ class TiledEngine:
         sc = self.ts.solute_constraints
         return sc.velocities(sx, sv, box) if sc is not None else sv
 
+    @profiling.spanned("cph.step")
     @state_batched
     def step(self, st: TiledState, frc: TiledForces, generators=None):
         """One BAOAB (or velocity-Verlet / NHC) step of a batch, or of one
         state; returns the new state and the forces at its positions.
         Langevin noise comes from ``generators`` (one a replica; for one
         state a Generator, default: the engine's)."""
+        profiling.count("steps")
         gens = generators_for(st.wx.shape[0], generators, self.generator)
         cfg = self.cfg
         ts = self.ts
@@ -732,6 +753,7 @@ class TiledEngine:
             st = dataclasses.replace(st, wx=wx_new, sx=sx_new)
             return st, vw, vs, dtf, al, n_pos, frc.e_pot
 
+        @profiling.spanned("cph.minimize")
         def minimize(st: TiledState):
             dtype, dev = st.sx.dtype, st.sx.device
             dtf = torch.tensor(dt_start, dtype=dtype, device=dev)
@@ -769,16 +791,20 @@ class TiledEngine:
         p = self.metad
         if (st.step_host - block) % p.stride >= block:
             return st
-        mv, mdv = metad_mod.deposit(st.metad_v, st.metad_dv, st.lam, p)
-        dV = (metad_mod.lookup(mv, mdv, st.lam, p)[0]
-              - metad_mod.lookup(st.metad_v, st.metad_dv, st.lam, p)[0])
-        return dataclasses.replace(
-            st, metad_v=mv, metad_dv=mdv,
-            ext_work=st.ext_work + torch.sum(dV, dim=-1))
+        profiling.count("deposits")
+        with profiling.span("cph.metad.deposit"):
+            mv, mdv = metad_mod.deposit(st.metad_v, st.metad_dv, st.lam, p)
+            dV = (metad_mod.lookup(mv, mdv, st.lam, p)[0]
+                  - metad_mod.lookup(st.metad_v, st.metad_dv, st.lam, p)[0])
+            return dataclasses.replace(
+                st, metad_v=mv, metad_dv=mdv,
+                ext_work=st.ext_work + torch.sum(dV, dim=-1))
 
+    @profiling.spanned("cph.rebin")
     def _rebin(self, st: TiledState):
         """layout.rebin of a batch; on slabs through one gather of the
         tiles (parallel.spatial.rebin_slab)."""
+        profiling.count("rebins")
         if self.slab is None:
             return rebin(st, self.ts.params)
         return spatial_mod.rebin_slab(st, self.slab, self.ts.params)
@@ -801,6 +827,7 @@ class TiledEngine:
         n_blocks = -(-n_steps // block)
         drift_budget = self.ts.params.skin
 
+        @profiling.spanned("cph.run")
         @state_batched
         def run(st: TiledState, generators=None):
             gens = generators_for(st.wx.shape[0], generators, self.generator)

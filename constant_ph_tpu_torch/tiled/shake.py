@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from constant_ph_tpu_torch import profiling
 from constant_ph_tpu_torch.ops.constraints import _C, solve3_components
 from constant_ph_tpu_torch.state import min_image
 from constant_ph_tpu_torch.tiled.layout import WaterModel
@@ -60,6 +61,7 @@ class TiledWaterShake:
         b = box[..., :, None, None]
         return x0, x0 + min_image(x1 - x0, b), x0 + min_image(x2 - x0, b)
 
+    @profiling.spanned("cph.shake")
     def positions(self, wx_ref, wx, wv, box, dt, wvalid):
         im0, im1, im2 = self.inv_m
         W3 = self.W3
@@ -90,6 +92,7 @@ class TiledWaterShake:
                          for d in (d0, d1, d2_)))
         return wx + delta, wv + delta / dt
 
+    @profiling.spanned("cph.shake")
     def velocities(self, wx, wv, box, wvalid):
         im0, im1, im2 = self.inv_m
         W3 = self.W3
